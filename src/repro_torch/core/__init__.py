@@ -1,0 +1,41 @@
+"""Core: the paper's contribution (asymmetric SA floorplanning + energy
+model) and the switching-activity profiler that feeds it.
+
+Exports what this slice of the port covers; the design-space engine and the
+batch pipeline of the reference come with later slices.
+"""
+
+from repro_torch.core.floorplan import (  # noqa: F401
+    BusActivity,
+    SystolicArrayGeometry,
+    accumulator_width,
+    bus_power,
+    bus_power_ratio_vs_square,
+    numeric_optimal_aspect,
+    optimal_aspect_power,
+    optimal_aspect_wirelength,
+    wirelength_total,
+)
+from repro_torch.core.energy import (  # noqa: F401
+    EnergyModelConfig,
+    average_comparison,
+    compare_sym_asym,
+    power_breakdown,
+)
+from repro_torch.core.switching import (  # noqa: F401
+    ActivityProfile,
+    clear_profile_cache,
+    combine_profiles,
+    profile_cache_info,
+    profile_gemm,
+    profile_tile,
+    stream_toggle_rate,
+)
+from repro_torch.core.systolic import (  # noqa: F401
+    DATAFLOWS,
+    Dataflow,
+    matmul_reference,
+    os_matmul_reference,
+    schedule_gemm,
+    ws_matmul_reference,
+)
