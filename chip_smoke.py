@@ -21,6 +21,8 @@ Phases (any mismatch exits non-zero; nothing is caught):
 4. Time each kernel at the main path's shapes with CUDA events (warm-up,
    then the median of repeated calls) beside its plain version and its
    bound.
+5. Trace the main path once more with ``torch.profiler`` and print the
+   device's busy share and the device time of each kernel and copy.
 
 The last lines are the ``kernels`` JSON object, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when no
@@ -47,6 +49,8 @@ PEAK_OPS_PER_S = 67e12
 # popcount; a bus value = XOR + AND + popcount.
 OPS_PER_PARTIAL_SUM = 5
 OPS_PER_BUS_VALUE = 3
+# Device-side events the profiler records for itself.
+PROFILER_OWN_EVENTS = ("Activity Buffer Request",)
 
 # The reference test matrices: tests/test_activity_profile.py CASES / OS_CASES.
 CASES = [
@@ -123,9 +127,9 @@ def main() -> None:
     kind = torch.cuda.get_device_name(0)
     print(f"card: {smi} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}", flush=True)
     t0 = time.perf_counter()
-    _build.build()
+    build_logs = _build.build()
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
-    for name, log in _build.BUILD_LOGS.items():
+    for name, log in build_logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
                 print(f"  nvcc[{name}]: {line.strip()}")
@@ -307,6 +311,7 @@ def main() -> None:
                   f"bound {bound:.6f} ms ({by})")
 
     # -- phase 5: where the main path's time goes ------------------------------
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     clear_profile_cache()
@@ -317,12 +322,15 @@ def main() -> None:
             profile_network(RESNET50_TABLE1, dataflow=dataflow, backend="auto")
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # Device-side events only (kernels and copies); host ops that launched
+    # them would count their time twice.  The profiler's own buffer request
+    # is shown but is not the program's work.
     device_ms = {
         ev.key: (ev.self_device_time_total / 1e3, ev.count)
         for ev in prof.key_averages()
-        if ev.self_device_time_total > 0
+        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
     }
-    busy_ms = sum(ms for ms, _ in device_ms.values())
+    busy_ms = sum(ms for key, (ms, _) in device_ms.items() if key not in PROFILER_OWN_EVENTS)
     print(f"trace of the main path (WS + OS, cache cleared, profiler on): wall {wall_ms:.1f} ms, "
           f"device busy {busy_ms:.4f} ms = {100 * busy_ms / wall_ms:.3f}% of the wall time")
     for key, (ms, count) in sorted(device_ms.items(), key=lambda kv: -kv[1][0])[:10]:

@@ -39,7 +39,6 @@ from repro_torch.core.floorplan import (
     BusActivity,
     SystolicArrayGeometry,
     _xp,
-    bus_power,
     bus_power_arr,
     optimal_aspect_power,
     optimal_aspect_power_arr,

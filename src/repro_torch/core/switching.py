@@ -616,7 +616,9 @@ def profile_gemm(
             plan = _tile_plan(m, k, n, rows, cols, max_tiles, max_stream, seed)
             a_h, a_v, h_den, v_den = _profile_numpy(a, w, b_h, b_v, plan)
     else:
-        plan = None if exact else _tile_plan(m, k, n, rows, cols, max_tiles, max_stream, seed)
+        plan = None
+        if not exact:
+            plan = _tile_plan(m, k, n, rows, cols, max_tiles, max_stream, seed)
         a_h, a_v, h_den, v_den = _profile_fused(
             a, w, rows, cols, b_h, b_v, plan, exact, dataflow, resolved
         )

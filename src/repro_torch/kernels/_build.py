@@ -42,8 +42,6 @@ SOURCES: dict[str, dict[str, tuple[list, type]]] = {
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
-# compiler output of the builds this process ran, by source name
-BUILD_LOGS: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -63,13 +61,15 @@ def _target(name: str) -> tuple[Path, Path]:
     return src, BUILD_DIR / f"{name}-{digest}.so"
 
 
-def build(names=None) -> dict[str, Path]:
+def build(names=None) -> dict[str, str]:
     """Compile the named sources (default: all) that are not built yet, one
-    ``nvcc`` process per source, all started together.  Returns the library
-    path of every named source."""
+    ``nvcc`` process per source, all started together.  Returns the
+    compiler's output for each source it compiled (register and spill
+    counts from ptxas)."""
     names = list(SOURCES) if names is None else list(names)
-    targets = {name: _target(name) for name in names}
-    pending = {name: t for name, t in targets.items() if not t[1].exists()}
+    pending = {name: _target(name) for name in names}
+    pending = {name: t for name, t in pending.items() if not t[1].exists()}
+    logs = {}
     if pending:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = _nvcc()
@@ -89,14 +89,14 @@ def build(names=None) -> dict[str, Path]:
         failures = []
         for name, (proc, tmp, lib) in procs.items():
             log, _ = proc.communicate()
-            BUILD_LOGS[name] = log
+            logs[name] = log
             if proc.returncode != 0:
                 failures.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
                 continue
             os.replace(tmp, lib)  # atomic, so a concurrent loader never sees half a file
         if failures:
             raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
-    return {name: t[1] for name, t in targets.items()}
+    return logs
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -105,8 +105,8 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            path = build([name])[name]
-            lib = ctypes.CDLL(str(path))
+            build([name])
+            lib = ctypes.CDLL(str(_target(name)[1]))
             for fn, (argtypes, restype) in SOURCES[name].items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = restype

@@ -134,8 +134,6 @@ def stream_toggle_total(x: np.ndarray, bits: int, *, engine: str = "cuda") -> in
         )
     if lanes >= MAX_FUSED_LANES:
         raise ValueError("fused engine supports < 2^25 stream lanes")
-    if not 1 <= bits <= 64:
-        raise ValueError("bus width must be in [1, 64]")
     return int(operand_stream_toggles(_to_device(x, device), bits).item())
 
 
