@@ -1,27 +1,36 @@
 #!/usr/bin/env python3
-"""Run the port's main path once on one CUDA card and check it end to end.
+"""Run the port's main paths once on one CUDA card and check them end to end.
 
     python3 chip_smoke.py
 
 Phases (any mismatch exits non-zero; nothing is caught):
 
 1. Print the card (``nvidia-smi`` name and power limit), build the CUDA
-   kernels from ``src/repro_torch/csrc`` and print the build time.
-2. Hold each kernel against its plain PyTorch version on the card, on the
-   reference test matrices and on every ResNet50 Table-I layer: the
-   integer counts must be equal (and equal to the numpy oracle on the
-   small cases).
-3. The main path: ``profile_network(RESNET50_TABLE1)`` exact, with
-   ``backend="auto"``, WS and OS, on the paper's 32x32 array with int16
-   operands.  Its profiles must equal the JAX package's, committed in
-   ``src/repro_torch/data/table1_reference.json``; then ``combine_profiles``
+   kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per source, all
+   started together) and print the build time.
+2. Hold each kernel against its plain PyTorch version on the card, element
+   for element: K1 and K4 on the reference test matrices and on every
+   ResNet50 Table-I layer (and the numpy oracle on the small cases); K2 and
+   K3 on the stacked buckets the port's scheduler builds for the
+   reference's ragged WS and OS job sets, and on the Table-I WS bucket
+   (3776 tasks over 720 strips) and OS stream bucket (496 strips).
+3. The two main paths, on the paper's 32x32 array with int16 operands, WS
+   and OS, each with every kernel count set to 0 just before it and read
+   just after:
+   * per GEMM: ``profile_conv_layer(backend="auto")`` per layer (K1, K4);
+   * batched: ``profile_network(RESNET50_TABLE1, backend="auto",
+     return_stats=True)`` (K2, K3).
+   Each path's profiles must equal the JAX package's, committed in
+   ``src/repro_torch/data/table1_reference.json``, and ``combine_profiles``
    -> ``optimal_aspect_power`` -> ``compare_sym_asym`` per layer ->
-   ``average_comparison`` must match the file to 1e-12 relative.  Every
-   kernel of the path must have been launched in this phase.
-4. Time each kernel at the main path's shapes with CUDA events (warm-up,
+   ``average_comparison`` must match the file to 1e-12 relative.  The
+   batched path's scheduler statistics must equal the reference's, with no
+   serial fallback, degraded or skipped job and an empty failure report.
+   Every kernel of a path must have been launched in its run.
+4. Time each kernel at the main paths' shapes with CUDA events (warm-up,
    then the median of repeated calls) beside its plain version and its
    bound.
-5. Trace the main path once more with ``torch.profiler`` and print the
+5. Trace each main path once more with ``torch.profiler`` and print the
    device's busy share and the device time of each kernel and copy.
 
 The last lines are the ``kernels`` JSON object, the ``nvidia-smi`` line and
@@ -51,6 +60,10 @@ OPS_PER_PARTIAL_SUM = 5
 OPS_PER_BUS_VALUE = 3
 # Device-side events the profiler records for itself.
 PROFILER_OWN_EVENTS = ("Activity Buffer Request",)
+KERNELS = ("ws_activity_toggles", "ws_task_toggles", "strip_toggles", "operand_stream_toggles")
+BATCH_STATS_FIELDS = (
+    "jobs", "passes", "pass_reuse", "buckets", "tasks", "strips", "serial_fallbacks",
+)
 
 # The reference test matrices: tests/test_activity_profile.py CASES / OS_CASES.
 CASES = [
@@ -72,6 +85,24 @@ OS_CASES = [
     (17, 16, 16, 16, 16, 32, 32),
     (257, 40, 33, 16, 16, 37, 33),
     (12, 1025, 16, 8, 8, 16, 12),
+]
+# The reference's ragged batches: tests/test_profile_pipeline.py RAGGED /
+# OS_RAGGED.
+RAGGED = [
+    (7, 5, 3, 16, 8, 16, 37),
+    (33, 70, 10, 16, 8, 16, 37),
+    (100, 37, 29, 16, 8, 8, 20),
+    (64, 64, 48, 32, 32, 16, 37),
+    (257, 40, 33, 16, 16, 37, 33),
+    (300, 80, 70, 32, 32, 16, 64),
+    (50, 24, 16, 8, 8, 8, 23),
+]
+OS_RAGGED = [
+    (7, 5, 3, 16, 8, 16, 16),
+    (33, 70, 10, 16, 8, 16, 12),
+    (100, 37, 29, 16, 8, 8, 8),
+    (257, 40, 33, 16, 16, 37, 33),
+    (12, 300, 16, 8, 8, 16, 16),
 ]
 
 
@@ -100,17 +131,17 @@ def main() -> None:
 
     import numpy as np
 
+    from repro_torch.core import pipeline
     from repro_torch.core.energy import average_comparison, compare_sym_asym
     from repro_torch.core.floorplan import SystolicArrayGeometry, optimal_aspect_power
     from repro_torch.core.optimize import os_dataflow_geometry
-    from repro_torch.core.quant import quantize_symmetric
+    from repro_torch.core.pipeline import BatchStats, ProfileJob
     from repro_torch.core.switching import clear_profile_cache, combine_profiles
     from repro_torch.core.workloads import (
         RESNET50_TABLE1,
-        conv_to_gemm,
+        conv_layer_job,
+        profile_conv_layer,
         profile_network,
-        synth_activations,
-        synth_weights,
     )
     from repro_torch.kernels import _build
     from repro_torch.kernels.activity_profile import kernel as K
@@ -118,6 +149,7 @@ def main() -> None:
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    wrappers = {name: getattr(K, name) for name in KERNELS}
 
     # -- phase 1: the card and the build ------------------------------------
     smi = subprocess.run(
@@ -135,10 +167,14 @@ def main() -> None:
                 print(f"  nvcc[{name}]: {line.strip()}")
 
     # -- phase 2: kernels vs plain versions on the card ---------------------
-    max_err = {"ws_activity_toggles": 0, "operand_stream_toggles": 0}
+    max_err = {name: 0 for name in KERNELS}
 
     def on_card(x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(dev)
+
+    def note(name, got, plain) -> None:
+        err = max((abs(g - p) for g, p in zip(got, plain)), default=0)
+        max_err[name] = max(max_err[name], err)
 
     def check_k1(a, w, rows, cols, b_h, b_v, what, small_case=False):
         """K1 vs its plain version (and, on a small case, vs the plain
@@ -146,8 +182,7 @@ def main() -> None:
         a_t, w_t = on_card(a), on_card(w)
         got = K.ws_activity_toggles(a_t, w_t, rows, cols, b_h, b_v).tolist()
         plain = K.ws_activity_toggles_plain(a_t, w_t, rows, cols, b_h, b_v).tolist()
-        err = max(abs(g - p) for g, p in zip(got, plain))
-        max_err["ws_activity_toggles"] = max(max_err["ws_activity_toggles"], err)
+        note("ws_activity_toggles", got, plain)
         check(got == plain, f"K1 {what}: kernel {got} plain {plain}")
         if small_case:
             windows = K.ws_activity_toggles_plain(a_t, w_t, rows, cols, b_h, b_v, block_t=7).tolist()
@@ -160,9 +195,51 @@ def main() -> None:
         got = int(K.operand_stream_toggles(x_t, bits).item())
         plain = int(K.operand_stream_toggles_plain(x_t, bits).item())
         windows = int(K.operand_stream_toggles_plain(x_t, bits, block_t=5).item())
-        max_err["operand_stream_toggles"] = max(max_err["operand_stream_toggles"], abs(got - plain))
+        note("operand_stream_toggles", [got], [plain])
         check(got == plain == windows, f"K4 {what}: kernel {got} plain {plain} block_t=5 {windows}")
         return got
+
+    def check_k3(strips_t, bits, what) -> None:
+        got = K.strip_toggles(strips_t, bits).tolist()
+        plain = K.strip_toggles_plain(strips_t, bits).tolist()
+        note("strip_toggles", got, plain)
+        check(got == plain, f"K3 {what}: kernel and plain version differ")
+
+    def check_k2(arrays, b_v, what) -> None:
+        got = K.ws_task_toggles(*arrays, b_v).tolist()
+        plain = K.ws_task_toggles_plain(*arrays, b_v).tolist()
+        note("ws_task_toggles", got, plain)
+        check(got == plain, f"K2 {what}: kernel and plain version differ")
+        check(min(got) >= 0, f"K2 {what}: a task flagged a bad index")
+
+    def stacked(jobs):
+        """The WS buckets and OS stream buckets the port's scheduler builds
+        for ``jobs``, grouped by shape class as ``run_profile_batch`` does,
+        as arrays on the card."""
+        order: dict[tuple, list[int]] = {}
+        for i, job in enumerate(jobs):
+            order.setdefault(pipeline._bucket_key(job), []).append(i)
+        bucket_map, buckets, pass_map = {}, [], {}
+        stream_map, stream_buckets, stream_pass_map = {}, [], {}
+        stats = BatchStats()
+        for members in order.values():
+            t_trim = max(-(-jobs[i].gemm_shape()[0] // 8) * 8 for i in members)
+            for i in members:
+                job = jobs[i]
+                a, w = job.operands()
+                if job.dataflow == "OS":
+                    pipeline._schedule_os_job(
+                        job, a, w, stream_map, stream_buckets, stream_pass_map, stats
+                    )
+                else:
+                    pipeline._schedule_job(job, a, w, t_trim, bucket_map, buckets, pass_map, stats)
+        ws = [
+            (b, tuple(on_card(np.asarray(x)) for x in (
+                np.stack(b.strips), np.stack(b.w_tiles), b.strip_ids, b.w_ids, b.valid_r)))
+            for b in buckets
+        ]
+        os_ = [(b, on_card(np.stack(b.strips))) for b in stream_buckets]
+        return ws, os_
 
     rng = np.random.default_rng(0)
     for case in CASES:
@@ -186,35 +263,55 @@ def main() -> None:
         check((got_h, got_v) == (h_ref, v_ref),
               f"K4 OS case {case}: {(got_h, got_v)} oracle {(h_ref, v_ref)}")
 
+    ragged_jobs = []
+    for dataflow, cases in (("WS", RAGGED), ("OS", OS_RAGGED)):
+        for m, k, n, rows, cols, b_h, b_v in cases:
+            a = rng.integers(-32767, 32768, size=(m, k))
+            w = rng.integers(-32767, 32768, size=(k, n))
+            ragged_jobs.append(
+                ProfileJob(rows=rows, cols=cols, b_h=b_h, b_v=b_v, a=a, w=w, dataflow=dataflow)
+            )
+    ws_buckets, os_buckets = stacked(ragged_jobs)
+    for b, arrays in ws_buckets:
+        what = f"ragged bucket {b.rows}x{b.cols} b_h={b.b_h} b_v={b.b_v} t_seg={b.t_seg}"
+        check_k2(arrays, b.b_v, what)
+        check_k3(arrays[0], b.b_h, what)
+    for b, strips_t in os_buckets:
+        check_k3(strips_t, b.bits, f"ragged OS stream bucket bits={b.bits} t_seg={b.t_seg}")
+
     operands = []
-    for seed, layer in enumerate(RESNET50_TABLE1):
-        g = conv_to_gemm(layer)
-        a = quantize_symmetric(synth_activations(g.m, g.k, layer.input_density, seed=seed), 16).values
-        w = quantize_symmetric(synth_weights(g.k, g.n, seed=seed + 1), 16).values
+    table1_jobs = {
+        dataflow: [conv_layer_job(layer, seed=i, dataflow=dataflow)
+                   for i, layer in enumerate(RESNET50_TABLE1)]
+        for dataflow in ("WS", "OS")
+    }
+    for job, layer in zip(table1_jobs["WS"], RESNET50_TABLE1):
+        a, w = job.operands()
         operands.append((layer.name, a, w))
         check_k1(a, w, 32, 32, 16, 37, f"{layer.name} WS")
         check_k4(a.T, 16, f"{layer.name} OS A stream")
         check_k4(w, 16, f"{layer.name} OS W stream")
+    ((_, ws_arrays),), _ = stacked(table1_jobs["WS"])
+    _, ((_, os_strips),) = stacked(table1_jobs["OS"])
+    check_k2(ws_arrays, 37, "Table-I WS bucket")
+    check_k3(ws_arrays[0], 16, "Table-I WS strips")
+    check_k3(os_strips, 16, "Table-I OS stream strips")
+    print(f"Table-I buckets: WS {ws_arrays[2].shape[0]} tasks over strips "
+          f"{tuple(ws_arrays[0].shape)} and tiles {tuple(ws_arrays[1].shape)}; "
+          f"OS strips {tuple(os_strips.shape)}")
     print(f"kernels vs plain versions: equal on {len(CASES) + 1 + len(RESNET50_TABLE1)} WS and "
-          f"{2 * (len(OS_CASES) + len(RESNET50_TABLE1))} OS inputs", flush=True)
+          f"{2 * (len(OS_CASES) + len(RESNET50_TABLE1))} OS per-GEMM inputs, "
+          f"{len(ws_buckets) + 1} WS buckets and {len(os_buckets) + 1} OS stream buckets",
+          flush=True)
 
-    # -- phase 3: the main path ----------------------------------------------
+    # -- phase 3: the main paths ---------------------------------------------
     ref = json.loads((ROOT / "src" / "repro_torch" / "data" / "table1_reference.json").read_text())
     geoms = {
         "WS": SystolicArrayGeometry.paper_32x32(),
         "OS": os_dataflow_geometry(16, 32, 32),
     }
-    K.ws_activity_toggles.launches = 0
-    K.operand_stream_toggles.launches = 0
-    clear_profile_cache()
-    main_ms = {}
-    verdicts = {}
-    for dataflow in ("WS", "OS"):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        profiles = profile_network(RESNET50_TABLE1, dataflow=dataflow, backend="auto")
-        torch.cuda.synchronize()
-        main_ms[dataflow] = (time.perf_counter() - t0) * 1e3
+
+    def check_profiles(path, dataflow, profiles):
         for layer, p, want in zip(RESNET50_TABLE1, profiles, ref["layers"]):
             counts = [
                 round(p.a_h * p.h_transitions * p.b_h),
@@ -222,13 +319,15 @@ def main() -> None:
                 p.h_transitions,
                 p.v_transitions,
             ]
-            print(f"  {dataflow} {layer.name}: a_h={p.a_h!r} a_v={p.a_v!r} counts={counts}")
+            print(f"  {path} {dataflow} {layer.name}: a_h={p.a_h!r} a_v={p.a_v!r} counts={counts}")
             check(counts == want[dataflow]["counts"],
-                  f"{dataflow} {layer.name}: counts {counts} reference {want[dataflow]['counts']}")
+                  f"{path} {dataflow} {layer.name}: counts {counts} "
+                  f"reference {want[dataflow]['counts']}")
             check(p.as_dict() == want[dataflow]["profile"],
-                  f"{dataflow} {layer.name}: profile {p.as_dict()} reference {want[dataflow]['profile']}")
+                  f"{path} {dataflow} {layer.name}: profile {p.as_dict()} "
+                  f"reference {want[dataflow]['profile']}")
             if dataflow == "WS":
-                check(p.a_v > p.a_h, f"WS {layer.name}: a_v <= a_h")
+                check(p.a_v > p.a_h, f"{path} WS {layer.name}: a_v <= a_h")
         geom = geoms[dataflow]
         avg = combine_profiles(profiles)
         design = avg.as_bus_activity()
@@ -243,21 +342,58 @@ def main() -> None:
         for i, (c, w_l) in enumerate(zip(comps, want["per_layer"])):
             pairs += [(f"L{i + 1}.{key}", getattr(c, key), w_l[key]) for key in w_l]
         for what, got, exp in pairs:
-            check(np.isfinite(got) and rel_close(got, exp), f"{dataflow} {what}: {got!r} reference {exp!r}")
-        verdicts[dataflow] = (aspect, agg["interconnect_saving"], agg["total_saving"])
-        print(f"{dataflow} verdict: W/H*={aspect!r} interconnect saving={agg['interconnect_saving']!r} "
-              f"total saving={agg['total_saving']!r} ({len(pairs)} floats within {REL_TOL} of the "
-              f"reference); main path {main_ms[dataflow]:.1f} ms", flush=True)
-    launches = {
-        "ws_activity_toggles": K.ws_activity_toggles.launches,
-        "operand_stream_toggles": K.operand_stream_toggles.launches,
-    }
-    print(f"main-path launches: {launches}", flush=True)
-    for name, count in launches.items():
-        check(count > 0, f"{name} was not launched on the main path")
-    check(verdicts["WS"][1] > 0 and verdicts["WS"][2] > 0, "WS asymmetric floorplan saves nothing")
+            check(np.isfinite(got) and rel_close(got, exp),
+                  f"{path} {dataflow} {what}: {got!r} reference {exp!r}")
+        if dataflow == "WS":
+            check(agg["interconnect_saving"] > 0 and agg["total_saving"] > 0,
+                  f"{path}: the WS asymmetric floorplan saves nothing")
+        print(f"{path} {dataflow} verdict: W/H*={aspect!r} interconnect saving="
+              f"{agg['interconnect_saving']!r} total saving={agg['total_saving']!r} "
+              f"({len(pairs)} floats within {REL_TOL} of the reference)", flush=True)
 
-    # -- phase 4: times at the main path's shapes ----------------------------
+    def per_gemm_path(dataflow):
+        return [
+            profile_conv_layer(layer, seed=i, backend="auto", dataflow=dataflow)
+            for i, layer in enumerate(RESNET50_TABLE1)
+        ]
+
+    def batched_path(dataflow):
+        return profile_network(RESNET50_TABLE1, dataflow=dataflow, backend="auto",
+                               return_stats=True)
+
+    launches = {}
+    main_ms = {}
+    for path, expected in (("per-GEMM", ("ws_activity_toggles", "operand_stream_toggles")),
+                           ("batched", ("ws_task_toggles", "strip_toggles"))):
+        clear_profile_cache()
+        for fn in wrappers.values():
+            fn.launches = 0
+        for dataflow in ("WS", "OS"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if path == "per-GEMM":
+                profiles = per_gemm_path(dataflow)
+            else:
+                profiles, stats = batched_path(dataflow)
+            torch.cuda.synchronize()
+            main_ms[path, dataflow] = (time.perf_counter() - t0) * 1e3
+            check_profiles(path, dataflow, profiles)
+            if path == "batched":
+                got = {key: getattr(stats, key) for key in BATCH_STATS_FIELDS}
+                print(f"  batched {dataflow} scheduler: {got}")
+                check(got == ref["batch_stats"][dataflow],
+                      f"batched {dataflow}: stats {got} reference {ref['batch_stats'][dataflow]}")
+                check(stats.serial_fallbacks == stats.degraded == stats.skipped == 0
+                      and not stats.failure_report,
+                      f"batched {dataflow}: fallbacks or failures {stats.as_dict()}")
+        counts = {name: fn.launches for name, fn in wrappers.items()}
+        print(f"{path} path: WS {main_ms[path, 'WS']:.1f} ms, OS {main_ms[path, 'OS']:.1f} ms; "
+              f"launches {counts}", flush=True)
+        for name in expected:
+            check(counts[name] > 0, f"{name} was not launched on the {path} path")
+            launches[name] = counts[name]
+
+    # -- phase 4: times at the main paths' shapes ----------------------------
     def median_ms(fn, calls: int, bursts: int = 5) -> float:
         """Median over bursts of the mean per-call time of ``calls``
         back-to-back calls, after one warm-up burst.  Where a call's host
@@ -280,7 +416,7 @@ def main() -> None:
         t_ops = n_ops / PEAK_OPS_PER_S * 1e3
         return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
-    totals = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": {}} for name in launches}
+    totals = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": {}} for name in KERNELS}
 
     def add(name, ms, plain, bound, by):
         t = totals[name]
@@ -310,36 +446,72 @@ def main() -> None:
             print(f"  K4 {name} {what} stream {t_len}x{lanes}: {ms:.4f} ms, plain {plain:.4f} ms, "
                   f"bound {bound:.6f} ms ({by})")
 
-    # -- phase 5: where the main path's time goes ------------------------------
+    # K2: the partial sums these tasks need, t_seg x valid_r x cols each
+    # (time padding included: it is the kernel's input); K3: every value
+    # read once.  The batched main path launches K2 once (WS) and K3 twice
+    # (WS strips at b_h, OS strips).
+    strips_t, tiles_t, ids_t, wids_t, vr_t = ws_arrays
+    n_tasks = ids_t.shape[0]
+    t_seg, cols = strips_t.shape[1] - 1, tiles_t.shape[2]
+    task_sums = t_seg * cols * int(vr_t.sum())
+    useful_sums = sum(int(np.prod(job.gemm_shape())) for job in table1_jobs["WS"])
+    ms = median_ms(lambda: K.ws_task_toggles(*ws_arrays, 37), calls=20)
+    plain = median_ms(lambda: K.ws_task_toggles_plain(*ws_arrays, 37), calls=2, bursts=3)
+    k2_bytes = sum(x.numel() * x.element_size() for x in ws_arrays) + 8 * n_tasks
+    bound, by = bound_ms(k2_bytes, OPS_PER_PARTIAL_SUM * task_sums)
+    add("ws_task_toggles", ms, plain, bound, by)
+    print(f"  K2 Table-I WS bucket, {n_tasks} tasks, {task_sums} partial sums "
+          f"({useful_sums} in the GEMMs: bound {OPS_PER_PARTIAL_SUM * useful_sums / PEAK_OPS_PER_S * 1e3:.5f} ms): "
+          f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.5f} ms ({by})")
+    for strips_x, bits, what in ((strips_t, 16, "WS strips"), (os_strips, 16, "OS stream strips")):
+        ms = median_ms(lambda: K.strip_toggles(strips_x, bits), calls=20)
+        plain = median_ms(lambda: K.strip_toggles_plain(strips_x, bits), calls=2, bursts=3)
+        values = strips_x.numel()
+        bound, by = bound_ms(4 * values + 8 * strips_x.shape[0], OPS_PER_BUS_VALUE * values)
+        add("strip_toggles", ms, plain, bound, by)
+        print(f"  K3 Table-I {what} {tuple(strips_x.shape)}: {ms:.4f} ms, plain {plain:.4f} ms, "
+              f"bound {bound:.6f} ms ({by})")
+
+    # -- phase 5: where each main path's time goes -----------------------------
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    clear_profile_cache()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for dataflow in ("WS", "OS"):
-            profile_network(RESNET50_TABLE1, dataflow=dataflow, backend="auto")
+    for path, run in (("per-GEMM", per_gemm_path), ("batched", batched_path)):
+        clear_profile_cache()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # Device-side events only (kernels and copies); host ops that launched
-    # them would count their time twice.  The profiler's own buffer request
-    # is shown but is not the program's work.
-    device_ms = {
-        ev.key: (ev.self_device_time_total / 1e3, ev.count)
-        for ev in prof.key_averages()
-        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
-    }
-    busy_ms = sum(ms for key, (ms, _) in device_ms.items() if key not in PROFILER_OWN_EVENTS)
-    print(f"trace of the main path (WS + OS, cache cleared, profiler on): wall {wall_ms:.1f} ms, "
-          f"device busy {busy_ms:.4f} ms = {100 * busy_ms / wall_ms:.3f}% of the wall time")
-    for key, (ms, count) in sorted(device_ms.items(), key=lambda kv: -kv[1][0])[:10]:
-        print(f"  device {ms:.4f} ms in {count} x {key[:90]}")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for dataflow in ("WS", "OS"):
+                run(dataflow)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        # Device-side events only (kernels and copies); host ops that launched
+        # them would count their time twice.  The profiler's own buffer
+        # request is shown but is not the program's work.
+        device_ms = {
+            ev.key: (ev.self_device_time_total / 1e3, ev.count)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
+        }
+        busy_ms = sum(ms for key, (ms, _) in device_ms.items() if key not in PROFILER_OWN_EVENTS)
+        print(f"trace of the {path} path (WS + OS, cache cleared, profiler on): wall "
+              f"{wall_ms:.1f} ms, device busy {busy_ms:.4f} ms = {100 * busy_ms / wall_ms:.3f}% "
+              f"of the wall time")
+        for key, (ms, count) in sorted(device_ms.items(), key=lambda kv: -kv[1][0])[:10]:
+            print(f"  device {ms:.4f} ms in {count} x {key[:90]}")
 
     meta = {
         "ws_activity_toggles": (
             "src/repro_torch/csrc/activity_profile.cu",
             "src/repro/kernels/activity_profile/kernel.py:149",
+        ),
+        "ws_task_toggles": (
+            "src/repro_torch/csrc/activity_batch.cu",
+            "src/repro/kernels/activity_profile/kernel.py:332",
+        ),
+        "strip_toggles": (
+            "src/repro_torch/csrc/activity_batch.cu",
+            "src/repro/kernels/activity_profile/kernel.py:298",
         ),
         "operand_stream_toggles": (
             "src/repro_torch/csrc/activity_profile.cu",

@@ -1,8 +1,8 @@
 """Core: the paper's contribution (asymmetric SA floorplanning + energy
 model) and the switching-activity profiler that feeds it.
 
-Exports what this slice of the port covers; the design-space engine and the
-batch pipeline of the reference come with later slices.
+Exports what the port covers so far; the design-space engine of the
+reference comes with a later slice.
 """
 
 from repro_torch.core.floorplan import (  # noqa: F401
@@ -28,6 +28,7 @@ from repro_torch.core.switching import (  # noqa: F401
     combine_profiles,
     profile_cache_info,
     profile_gemm,
+    profile_gemms,
     profile_tile,
     stream_toggle_rate,
 )

@@ -37,16 +37,20 @@ the same integer counts (verified bit-exact against each other in tests):
   * ``"auto"`` (default): ``"cuda"``.  Operands wider than int16, or
     dimensions beyond the engine's ``MAX_FUSED_*`` bounds, go to numpy with
     a ``ProfileDegradationWarning``; with no CUDA device ``"auto"`` raises.
-    ``$REPRO_ACTIVITY_BACKEND`` sets the default.
+    ``$REPRO_TORCH_ACTIVITY_BACKEND`` sets the default.
 
 Exact full-stream profiling is the DEFAULT: every weight tile, every stream
 step. Subsampling (``max_tiles``/``max_stream``) is an explicit opt-in and
 every backend draws the identical subsample plan from the seed.
 
-Results are memoized in an in-memory content-keyed cache (sha256 over
-operand bytes + geometry + backend + dataflow); see ``clear_profile_cache``
-/ ``profile_cache_info``.  The on-disk store, the batch API and the
-lane-resolved profiles of the reference come with later slices.
+Results are memoized in a content-keyed cache (sha256 over operand bytes +
+geometry + backend + dataflow); see ``clear_profile_cache`` /
+``profile_cache_info``.  Lookup is layered, memory -> on-disk store
+(``configure_profile_store`` or ``$REPRO_TORCH_PROFILE_STORE``) -> compute.
+
+``profile_gemms`` profiles many GEMMs at once through the batched pipeline
+(``repro_torch.core.pipeline``).  The lane-resolved profiles of the
+reference come with a later slice.
 """
 
 from __future__ import annotations
@@ -62,6 +66,7 @@ import numpy as np
 import torch
 
 from repro_torch.runtime.resilience import (
+    CacheThrashWarning,
     ContractViolationError,
     ProfileDegradationWarning,
 )
@@ -78,13 +83,19 @@ __all__ = [
     "ActivityProfile",
     "profile_tile",
     "profile_gemm",
+    "profile_gemms",
     "combine_profiles",
     "clear_profile_cache",
     "profile_cache_info",
+    "set_profile_cache_capacity",
+    "configure_profile_store",
+    "profile_store",
+    "profile_store_info",
+    "CacheThrashWarning",
 ]
 
 BACKENDS = ("auto", "cuda", "torch", "numpy")
-DEFAULT_BACKEND = os.environ.get("REPRO_ACTIVITY_BACKEND", "auto")
+DEFAULT_BACKEND = os.environ.get("REPRO_TORCH_ACTIVITY_BACKEND", "auto")
 
 _M1 = np.uint64(0x5555555555555555)
 _M2 = np.uint64(0x3333333333333333)
@@ -382,21 +393,34 @@ def _resolve_backend(
 # --- content-keyed profile cache -------------------------------------------
 # A profile is a pure function of (operands, geometry, plan), so memoize on
 # content. Exact-mode keys ignore the seed (it only feeds the subsampler).
+#
+# Lookup is LAYERED: memory -> on-disk store -> compute.  The store
+# (``repro_torch.core.profile_store``) shares the same keys across
+# processes; it is enabled by ``configure_profile_store(path)`` or
+# ``$REPRO_TORCH_PROFILE_STORE`` and stays off otherwise (in-process behavior
+# is then the memory-only cache).
 
-_KEY_VERSION = "v4"
+_KEY_VERSION = "v4"  # also the on-disk store's schema-version directory
 
 _PROFILE_CACHE: OrderedDict[bytes, ActivityProfile] = OrderedDict()
 _PROFILE_CACHE_CAPACITY = max(
-    1, int(os.environ.get("REPRO_PROFILE_CACHE_CAPACITY", "128"))
+    1, int(os.environ.get("REPRO_TORCH_PROFILE_CACHE_CAPACITY", "128"))
 )
-_PROFILE_CACHE_STATS = {"hits": 0, "misses": 0, "evictions": 0}
+_PROFILE_CACHE_STATS = {"hits": 0, "misses": 0, "store_hits": 0, "evictions": 0}
+_THRASH_WARNED = False
+
+_PROFILE_STORE = None
+_PROFILE_STORE_RESOLVED = False
 
 
 def clear_profile_cache() -> None:
-    """Drop the in-memory cache and reset its counters."""
+    """Drop the in-memory cache + reset its counters (the on-disk store, if
+    configured, is NOT touched — it exists to outlive process state)."""
+    global _THRASH_WARNED
     _PROFILE_CACHE.clear()
     for k in _PROFILE_CACHE_STATS:
         _PROFILE_CACHE_STATS[k] = 0
+    _THRASH_WARNED = False
 
 
 def profile_cache_info() -> dict:
@@ -405,6 +429,89 @@ def profile_cache_info() -> dict:
         "capacity": _PROFILE_CACHE_CAPACITY,
         **_PROFILE_CACHE_STATS,
     }
+
+
+def set_profile_cache_capacity(capacity: int) -> int:
+    """Set the in-memory LRU capacity (entries); returns the previous value.
+
+    The default comes from ``$REPRO_TORCH_PROFILE_CACHE_CAPACITY`` (128 when
+    unset).  A single network-scale batch that stores more profiles than
+    this thrashes mid-workload (see ``CacheThrashWarning``)."""
+    global _PROFILE_CACHE_CAPACITY
+    if capacity < 1:
+        raise ContractViolationError("cache capacity must be >= 1")
+    prev = _PROFILE_CACHE_CAPACITY
+    _PROFILE_CACHE_CAPACITY = int(capacity)
+    while len(_PROFILE_CACHE) > _PROFILE_CACHE_CAPACITY:
+        _PROFILE_CACHE.popitem(last=False)
+        _PROFILE_CACHE_STATS["evictions"] += 1
+    return prev
+
+
+def configure_profile_store(path=None, *, max_bytes=None):
+    """Enable (or with ``path=None`` disable) the on-disk profile store.
+
+    ``path`` may also be an existing ``ProfileStore`` instance, installed
+    as-is with its statistics intact (callers that temporarily swap stores
+    restore the previous one this way).  Returns the active ``ProfileStore``
+    (or None).  Overrides any ``$REPRO_TORCH_PROFILE_STORE`` environment
+    configuration for this process."""
+    global _PROFILE_STORE, _PROFILE_STORE_RESOLVED
+    from repro_torch.core.profile_store import _DEFAULT_MAX_BYTES, ProfileStore
+
+    _PROFILE_STORE_RESOLVED = True
+    if path is None:
+        _PROFILE_STORE = None
+        return None
+    if isinstance(path, ProfileStore):
+        _PROFILE_STORE = path
+        return _PROFILE_STORE
+    _PROFILE_STORE = ProfileStore(
+        path,
+        max_bytes=_DEFAULT_MAX_BYTES if max_bytes is None else max_bytes,
+        version=_KEY_VERSION,
+    )
+    return _PROFILE_STORE
+
+
+def profile_store():
+    """The active on-disk store: explicit configuration first, else lazily
+    from ``$REPRO_TORCH_PROFILE_STORE`` (+
+    ``$REPRO_TORCH_PROFILE_STORE_MAX_BYTES``), else None."""
+    global _PROFILE_STORE, _PROFILE_STORE_RESOLVED
+    if not _PROFILE_STORE_RESOLVED:
+        _PROFILE_STORE_RESOLVED = True
+        path = os.environ.get("REPRO_TORCH_PROFILE_STORE", "").strip()
+        if path:
+            max_bytes = os.environ.get("REPRO_TORCH_PROFILE_STORE_MAX_BYTES")
+            configure_profile_store(
+                path, max_bytes=int(max_bytes) if max_bytes else None
+            )
+    return _PROFILE_STORE
+
+
+def profile_store_info() -> dict | None:
+    store = profile_store()
+    return None if store is None else store.info()
+
+
+def _note_batch_stores(n_stored: int) -> None:
+    """One-shot mid-workload thrash warning: a single batch stored more
+    profiles than the memory cache holds, so jobs at the batch's end
+    evicted entries its consumers (e.g. a design-space sweep re-reading
+    every layer) still need."""
+    global _THRASH_WARNED
+    if _THRASH_WARNED or n_stored <= _PROFILE_CACHE_CAPACITY:
+        return
+    _THRASH_WARNED = True
+    warnings.warn(
+        f"one profiling batch stored {n_stored} profiles but the in-memory "
+        f"cache holds only {_PROFILE_CACHE_CAPACITY}; mid-workload eviction "
+        "will thrash re-reads. Raise REPRO_TORCH_PROFILE_CACHE_CAPACITY or call "
+        "set_profile_cache_capacity() to fit the working set.",
+        CacheThrashWarning,
+        stacklevel=3,
+    )
 
 
 def _operand_digest(arr: np.ndarray) -> bytes:
@@ -440,21 +547,38 @@ def _cache_key(
     return h.digest()
 
 
-def _cache_get(key: bytes) -> ActivityProfile | None:
+def _cache_get(key: bytes) -> tuple[ActivityProfile | None, str | None]:
+    """Layered lookup (memory -> disk store); returns ``(profile, source)``
+    with ``source`` in ``("memory", "store", None)``.  Hit/miss accounting
+    is shared with the batch pipeline; a store hit is promoted into the
+    memory LRU (without a write-back to disk)."""
     hit = _PROFILE_CACHE.get(key)
     if hit is not None:
         _PROFILE_CACHE_STATS["hits"] += 1
         _PROFILE_CACHE.move_to_end(key)
-        return hit
+        return hit, "memory"
+    store = profile_store()
+    if store is not None:
+        hit = store.get(key)
+        if hit is not None:
+            _PROFILE_CACHE_STATS["store_hits"] += 1
+            _cache_put(key, hit, write_store=False)
+            return hit, "store"
     _PROFILE_CACHE_STATS["misses"] += 1
-    return None
+    return None, None
 
 
-def _cache_put(key: bytes, profile: ActivityProfile) -> None:
+def _cache_put(
+    key: bytes, profile: ActivityProfile, *, write_store: bool = True
+) -> None:
     _PROFILE_CACHE[key] = profile
     while len(_PROFILE_CACHE) > _PROFILE_CACHE_CAPACITY:
         _PROFILE_CACHE.popitem(last=False)
         _PROFILE_CACHE_STATS["evictions"] += 1
+    if write_store:
+        store = profile_store()
+        if store is not None:
+            store.put(key, profile)
 
 
 def _profile_numpy(a, w, b_h, b_v, plan) -> tuple[float, float, int, int]:
@@ -569,7 +693,7 @@ def profile_gemm(
     worth subsampling (passing the limits with OS raises).
 
     ``backend`` is one of ``BACKENDS`` (see the module docstring); None
-    takes ``$REPRO_ACTIVITY_BACKEND``, else ``"auto"``.  ``lane_detail=True``
+    takes ``$REPRO_TORCH_ACTIVITY_BACKEND``, else ``"auto"``.  ``lane_detail=True``
     (the per-bit-lane toggle totals) is not ported yet and raises
     ``NotImplementedError``.
     """
@@ -605,7 +729,7 @@ def profile_gemm(
     key = None
     if use_cache:
         key = _cache_key(a, w, rows, cols, b_h, b_v, (resolved, dataflow, *mode))
-        hit = _cache_get(key)
+        hit, _ = _cache_get(key)
         if hit is not None:
             return hit
 
@@ -636,6 +760,25 @@ def profile_gemm(
     if key is not None:
         _cache_put(key, profile)
     return profile
+
+
+def profile_gemms(jobs, **kwargs):
+    """Batch API: profile MANY GEMMs as a handful of device programs.
+
+    ``jobs`` is a sequence of ``repro_torch.core.pipeline.ProfileJob`` (each
+    carrying its own dataflow); returns the profiles in input order. Jobs
+    are deduped against the content-keyed cache, bucketed into shared padded
+    shape classes, dispatched asynchronously (device work overlaps the next
+    bucket's host-side operand synthesis), and identical operands profiled
+    across several (rows, cols) geometries share one device pass (OS jobs
+    share geometry-FREE operand-stream passes).  Counts are bit-exact vs
+    per-job ``profile_gemm``.  See ``repro_torch.core.pipeline``
+    (``run_profile_batch`` returns scheduling statistics as well).
+    """
+    from repro_torch.core.pipeline import run_profile_batch
+
+    profiles, _ = run_profile_batch(jobs, **kwargs)
+    return profiles
 
 
 def combine_profiles(profiles: Iterable[ActivityProfile]) -> ActivityProfile:

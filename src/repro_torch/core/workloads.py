@@ -6,9 +6,10 @@ zero-mean weights, quantized to int16 exactly as in Section IV.  Operand
 synthesis stays on numpy's ``default_rng`` with the reference package's
 seeds, so both packages profile byte-identical operands.
 
-Only the Table-I half of the reference module is here: the batched network
-scheduler, the LLM GEMM extraction and the design-space activity helpers
-come with later slices of the port.
+Only the Table-I half of the reference module is here.  ``profile_network``
+runs all layers through the batched pipeline (``repro_torch.core.pipeline``)
+as lazy ``conv_layer_job``s.  The LLM GEMM extraction and the design-space
+activity helpers come with later slices of the port.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ __all__ = [
     "synth_activations",
     "synth_weights",
     "profile_conv_layer",
+    "conv_layer_job",
     "profile_network",
 ]
 
@@ -154,6 +156,45 @@ def profile_conv_layer(
     )
 
 
+def conv_layer_job(
+    layer: ConvLayer,
+    rows: int = 32,
+    cols: int = 32,
+    bits: int = 16,
+    b_v: int | None = None,
+    seed: int = 0,
+    dataflow: str = "WS",
+):
+    """A lazy batch-pipeline job for one Table-I conv layer.
+
+    Operand synthesis (``synth_activations`` + ``quantize_symmetric``) runs
+    only when the pipeline materializes the job, i.e. overlapped with the
+    device work of the previous shape-class bucket.  Operands and
+    quantization match ``profile_conv_layer`` exactly, so profiles land on
+    (and hit) the same content-keyed cache entries.
+    """
+    from repro_torch.core.pipeline import ProfileJob
+
+    g = conv_to_gemm(layer)
+    bv = b_v if b_v is not None else _default_b_v(bits, rows, dataflow)
+
+    def make():
+        a_f = synth_activations(g.m, g.k, layer.input_density, seed=seed)
+        w_f = synth_weights(g.k, g.n, seed=seed + 1)
+        return quantize_symmetric(a_f, bits).values, quantize_symmetric(w_f, bits).values
+
+    return ProfileJob(
+        rows=rows,
+        cols=cols,
+        b_h=bits,
+        b_v=bv,
+        make=make,
+        shape=(g.m, g.k, g.n),
+        name=layer.name,
+        dataflow=dataflow,
+    )
+
+
 def profile_network(
     layers: Sequence[ConvLayer],
     rows: int = 32,
@@ -166,27 +207,48 @@ def profile_network(
     dataflow: str = "WS",
     backend: str | None = None,
     use_cache: bool = True,
-) -> list[ActivityProfile]:
-    """Profile a whole network's conv layers, layer i with seed i.
+    return_stats: bool = False,
+):
+    """Profile a whole network's conv layers through the batched pipeline.
 
-    This is the serial loop over ``profile_conv_layer``; the reference
-    runs the same profiles through its batched scheduler, which promises
-    bit-exact equality with this loop.  The batched scheduler and its
-    kernels come with a later slice of the port.
+    The batched analogue of looping ``profile_conv_layer``: same operands,
+    same seeds (layer i uses seed i), same cache keys, bit-exact profiles,
+    but all layers ride a handful of batched device passes with operand
+    synthesis overlapped against device work.
+
+    Subsampling (``max_tiles``/``max_stream``, WS only) remains a per-GEMM
+    estimate, so requesting it falls back to the serial loop (the batch
+    pipeline is exact-only).  With ``return_stats=True`` also returns the
+    ``repro_torch.core.pipeline.BatchStats`` of the run.
     """
-    return [
-        profile_conv_layer(
-            layer,
-            rows=rows,
-            cols=cols,
-            bits=bits,
-            b_v=b_v,
-            max_tiles=max_tiles,
-            max_stream=max_stream,
-            seed=i,
-            backend=backend,
-            use_cache=use_cache,
-            dataflow=dataflow,
+    from repro_torch.core.pipeline import BatchStats, run_profile_batch
+
+    layers = list(layers)
+    if max_tiles is not None or max_stream is not None:
+        profiles = [
+            profile_conv_layer(
+                layer,
+                rows=rows,
+                cols=cols,
+                bits=bits,
+                b_v=b_v,
+                max_tiles=max_tiles,
+                max_stream=max_stream,
+                seed=i,
+                backend=backend,
+                use_cache=use_cache,
+                dataflow=dataflow,
+            )
+            for i, layer in enumerate(layers)
+        ]
+        stats = BatchStats(jobs=len(layers), serial_fallbacks=len(layers))
+        return (profiles, stats) if return_stats else profiles
+
+    jobs = [
+        conv_layer_job(
+            layer, rows=rows, cols=cols, bits=bits, b_v=b_v, seed=i, dataflow=dataflow
         )
         for i, layer in enumerate(layers)
     ]
+    profiles, stats = run_profile_batch(jobs, backend=backend, use_cache=use_cache)
+    return (profiles, stats) if return_stats else profiles

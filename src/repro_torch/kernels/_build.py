@@ -38,6 +38,13 @@ SOURCES: dict[str, dict[str, tuple[list, type]]] = {
         # x, out, t_len, lanes, bits, stream
         "operand_stream_toggles": ([_P, _P, _I, _I, _I, _P], _I),
     },
+    "activity_batch": {
+        # strips, w_tiles, strip_ids, w_ids, valid_r, out,
+        # num_tasks, num_strips, num_tiles, t1, rows, cols, b_v, stream
+        "ws_task_toggles": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+        # strips, out, num_strips, t1, lanes, bits, stream
+        "strip_toggles": ([_P, _P, _I, _I, _I, _I, _P], _I),
+    },
 }
 
 _LOCK = threading.Lock()

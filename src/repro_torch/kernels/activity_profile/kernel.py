@@ -1,8 +1,7 @@
 """Toggle-counting kernels of the activity profiler and their plain versions.
 
-Two kernels, written for Hopper in ``csrc/activity_profile.cu`` (the note at
-the top of that file says what bounds each on the card and what its design
-does about it):
+Four kernels, written for Hopper.  Two per-GEMM kernels in
+``csrc/activity_profile.cu``:
 
   * K1 ``ws_activity_toggles`` replaces ``activity_profile_pallas``
     (``src/repro/kernels/activity_profile/kernel.py``): exact (h, v) toggle
@@ -12,12 +11,23 @@ does about it):
     operand lane streams, the per-GEMM work of the output-stationary
     dataflow.
 
-Each wrapper takes int32 tensors and returns int64 totals on the operands'
-device.  For CPU tensors it runs the plain PyTorch version beside it; for
-CUDA tensors it launches the kernel, adds one to its ``launches`` count,
-and raises if the launch is refused.  The plain versions also run on CUDA
-tensors when called directly, which is how the kernels are checked on the
-card.
+and two batched kernels of the profiling pipeline in
+``csrc/activity_batch.cu``, over the stacked seeded windows of
+``repro_torch.kernels.activity_profile.batch``:
+
+  * K2 ``ws_task_toggles`` replaces ``activity_profile_pallas_tasks``: the
+    vertical-bus toggles of each stacked weight-stationary segment task.
+  * K3 ``strip_toggles`` replaces ``stream_strips_toggles_pallas``: the
+    toggles of each stacked stream window (OS operand streams, and the WS
+    horizontal pass).
+
+The note at the top of each source says what bounds each kernel on the
+card and what its design does about it.  Each wrapper takes int32 tensors
+and returns int64 counts on the operands' device.  For CPU tensors it runs
+the plain PyTorch version beside it; for CUDA tensors it launches the
+kernel, adds one to its ``launches`` count, and raises if the launch is
+refused.  The plain versions also run on CUDA tensors when called directly,
+which is how the kernels are checked on the card.
 """
 
 from __future__ import annotations
@@ -29,6 +39,16 @@ from repro_torch.kernels.bitops import bus_mask, popcount64
 
 __all__ = [
     "PLAIN_BLOCK_ELEMENTS",
+    "DEFAULT_BLOCK_BUDGET",
+    "MAX_BLOCK_T",
+    "MIN_BLOCK_T",
+    "TASK_CHUNK_BUDGET",
+    "choose_block_t",
+    "choose_task_chunk",
+    "ws_task_toggles",
+    "ws_task_toggles_plain",
+    "strip_toggles",
+    "strip_toggles_plain",
     "ws_activity_toggles",
     "ws_activity_toggles_plain",
     "operand_stream_toggles",
@@ -38,15 +58,47 @@ __all__ = [
 # Largest int64 partial-sum block a plain version materializes at once.
 PLAIN_BLOCK_ELEMENTS = 1 << 22
 
+# The reference engine's time-block budget: block_t * rows * cols plane
+# elements.  Not a limit of the kernels here; the batched pipeline's shape
+# classes (``core.pipeline._bucket_key``) are sized by it, so the port
+# buckets, and counts its passes, exactly as the reference does.
+DEFAULT_BLOCK_BUDGET = 1 << 20
+MAX_BLOCK_T = 512
+MIN_BLOCK_T = 8
+
+# Tasks per step of K2's plain version: one step carries a
+# (chunk, t_seg + 1, cols) int64 partial-sum plane of about this many
+# elements.  On the CPU a small plane keeps its temporaries in a core's
+# cache; on the card, where every elementwise step is a launch, a large one
+# keeps the launch count down.
+TASK_CHUNK_BUDGET = {"cpu": 1 << 17, "cuda": 1 << 20}
+
+
+def choose_block_t(rows: int, cols: int, budget: int = DEFAULT_BLOCK_BUDGET) -> int:
+    """Time-block size: as many steps as the element budget allows, 8-aligned."""
+    bt = budget // max(rows * cols, 1)
+    bt = max(MIN_BLOCK_T, min(MAX_BLOCK_T, bt))
+    return bt - (bt % MIN_BLOCK_T)
+
+
+def choose_task_chunk(num_tasks: int, t_seg1: int, cols: int, device_type: str = "cpu") -> int:
+    """Tasks per step of K2's plain version on a ``device_type`` device,
+    balanced so that the last step is not mostly empty."""
+    chunk = max(8, TASK_CHUNK_BUDGET[device_type] // max(t_seg1 * cols, 1))
+    if num_tasks <= chunk:
+        return max(1, num_tasks)
+    steps = -(-num_tasks // chunk)
+    return -(-num_tasks // steps)
+
 
 def _check_bits(*bits: int) -> None:
     if not all(1 <= b <= 64 for b in bits):
         raise ValueError("bus widths must be in [1, 64]")
 
 
-def _check_operand(x: torch.Tensor, name: str, device: torch.device) -> None:
-    if not isinstance(x, torch.Tensor) or x.ndim != 2:
-        raise ValueError(f"{name} must be a 2-D tensor")
+def _check_operand(x: torch.Tensor, name: str, device: torch.device, ndim: int = 2) -> None:
+    if not isinstance(x, torch.Tensor) or x.ndim != ndim:
+        raise ValueError(f"{name} must be a {ndim}-D tensor")
     if x.dtype != torch.int32:
         raise TypeError(f"{name} must be int32, got {x.dtype}")
     if x.device != device:
@@ -57,8 +109,17 @@ def _check_operand(x: torch.Tensor, name: str, device: torch.device) -> None:
         raise ValueError(f"{name} is too large for 32-bit extents")
 
 
-def _launch(fn_name: str, device: torch.device, *args) -> None:
-    lib = _build.load("activity_profile")
+def _on_cpu(x: torch.Tensor, fn_name: str) -> bool:
+    """True for a CPU tensor (plain version), False for a CUDA one (kernel)."""
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"{fn_name} runs on cpu or cuda tensors, not {x.device}")
+    return False
+
+
+def _launch(fn_name: str, device: torch.device, *args, source: str = "activity_profile") -> None:
+    lib = _build.load(source)
     with torch.cuda.device(device):
         err = getattr(lib, fn_name)(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
@@ -123,10 +184,8 @@ def ws_activity_toggles(
     if rows < 1 or cols < 1:
         raise ValueError("rows and cols must be positive")
     _check_bits(b_h, b_v)
-    if a.device.type == "cpu":
+    if _on_cpu(a, "ws_activity_toggles"):
         return ws_activity_toggles_plain(a, w, rows, cols, b_h, b_v)
-    if a.device.type != "cuda":
-        raise ValueError(f"ws_activity_toggles runs on cpu or cuda tensors, not {a.device}")
     m, k = a.shape
     n = w.shape[1]
     out = torch.zeros(2, dtype=torch.int64, device=a.device)
@@ -171,10 +230,8 @@ def operand_stream_toggles(x: torch.Tensor, bits: int) -> torch.Tensor:
     device.  Lane l carries x[:, l]; lanes never mix."""
     _check_operand(x, "x", x.device)
     _check_bits(bits)
-    if x.device.type == "cpu":
+    if _on_cpu(x, "operand_stream_toggles"):
         return operand_stream_toggles_plain(x, bits)
-    if x.device.type != "cuda":
-        raise ValueError(f"operand_stream_toggles runs on cpu or cuda tensors, not {x.device}")
     t, lanes = x.shape
     out = torch.zeros(1, dtype=torch.int64, device=x.device)
     if t < 2 or lanes == 0:
@@ -187,3 +244,149 @@ def operand_stream_toggles(x: torch.Tensor, bits: int) -> torch.Tensor:
 
 
 operand_stream_toggles.launches = 0
+
+
+def ws_task_toggles_plain(
+    strips: torch.Tensor,
+    w_tiles: torch.Tensor,
+    strip_ids: torch.Tensor,
+    w_ids: torch.Tensor,
+    valid_r: torch.Tensor,
+    b_v: int,
+    *,
+    task_chunk: int | None = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of K2: (P,) int64 vertical-bus toggles per task.
+
+    Walks the tasks ``task_chunk`` at a time (default ``choose_task_chunk``)
+    and, within a chunk, the reduction rows, carrying the (chunk, t_seg + 1,
+    cols) int64 partial-sum planes as the reference's task kernel does; row
+    r counts only for tasks with r < valid_r.  A task whose ids are out of
+    range gets -1, as on the kernel.
+    """
+    num_tasks = strip_ids.shape[0]
+    num_strips, t1, rows = strips.shape
+    num_tiles, _, cols = w_tiles.shape
+    out = torch.zeros(num_tasks, dtype=torch.int64, device=strips.device)
+    if num_tasks == 0 or t1 < 2:
+        return out
+    sid = strip_ids.to(torch.int64)
+    wid = w_ids.to(torch.int64)
+    ok = (sid >= 0) & (sid < num_strips) & (wid >= 0) & (wid < num_tiles)
+    sid = torch.where(ok, sid, 0)
+    wid = torch.where(ok, wid, 0)
+    vr = torch.where(ok, valid_r.to(torch.int64).clamp(0, rows), 0)
+    if task_chunk is None:
+        task_chunk = choose_task_chunk(num_tasks, t1, cols, strips.device.type)
+    mask = bus_mask(b_v)
+    for p0 in range(0, num_tasks, task_chunk):
+        sl = slice(p0, p0 + task_chunk)
+        vr_c = vr[sl]
+        depth = int(vr_c.max())  # rows past every task's valid_r count nothing
+        if depth == 0:
+            continue
+        a = strips[sid[sl]].to(torch.int64)  # (chunk, t1, rows)
+        w = w_tiles[wid[sl]].to(torch.int64)  # (chunk, rows, cols)
+        s = torch.zeros((a.shape[0], t1, cols), dtype=torch.int64, device=strips.device)
+        for r in range(depth):
+            s += a[:, :, r, None] * w[:, None, r, :]
+            cnt = popcount64((s[:, 1:] ^ s[:, :-1]) & mask).sum(dim=(1, 2))
+            out[sl] += torch.where(r < vr_c, cnt, 0)
+    return torch.where(ok, out, -1)
+
+
+def ws_task_toggles(
+    strips: torch.Tensor,
+    w_tiles: torch.Tensor,
+    strip_ids: torch.Tensor,
+    w_ids: torch.Tensor,
+    valid_r: torch.Tensor,
+    b_v: int,
+) -> torch.Tensor:
+    """K2: exact vertical-bus toggles of each stacked WS segment task, as a
+    (P,) int64 tensor on ``strips``' device.
+
+    ``strips`` is (S, t_seg + 1, rows), seeded windows of activation rows
+    (row 0 of each is the value just before the window); ``w_tiles`` is
+    (W, rows, cols); ``strip_ids``, ``w_ids`` and ``valid_r`` are (P,): task
+    p runs strip ``strip_ids[p]`` through tile ``w_ids[p]`` and counts the
+    partial sums of its first ``valid_r[p]`` reduction rows (the rest are K
+    padding; ``valid_r == 0`` turns a task off).  All int32 with
+    int16-range operand values.
+    """
+    device = strips.device
+    _check_operand(strips, "strips", device, ndim=3)
+    _check_operand(w_tiles, "w_tiles", device, ndim=3)
+    for x, name in ((strip_ids, "strip_ids"), (w_ids, "w_ids"), (valid_r, "valid_r")):
+        _check_operand(x, name, device, ndim=1)
+        if x.shape[0] != strip_ids.shape[0]:
+            raise ValueError("strip_ids, w_ids and valid_r must have one entry per task")
+    if w_tiles.shape[1] != strips.shape[2]:
+        raise ValueError(
+            f"strips have {strips.shape[2]} rows but w_tiles {w_tiles.shape[1]}"
+        )
+    if strips.shape[1] < 2:
+        raise ValueError("strips need a seed row and at least one time step")
+    _check_bits(b_v)
+    if _on_cpu(strips, "ws_task_toggles"):
+        return ws_task_toggles_plain(strips, w_tiles, strip_ids, w_ids, valid_r, b_v)
+    num_tasks = strip_ids.shape[0]
+    out = torch.empty(num_tasks, dtype=torch.int64, device=device)
+    if num_tasks == 0:
+        return out
+    num_strips, t1, rows = strips.shape
+    num_tiles, _, cols = w_tiles.shape
+    _launch(
+        "ws_task_toggles", device,
+        strips.data_ptr(), w_tiles.data_ptr(), strip_ids.data_ptr(), w_ids.data_ptr(),
+        valid_r.data_ptr(), out.data_ptr(), num_tasks, num_strips, num_tiles, t1, rows, cols,
+        b_v, source="activity_batch",
+    )
+    ws_task_toggles.launches += 1
+    return out
+
+
+ws_task_toggles.launches = 0
+
+
+def strip_toggles_plain(strips: torch.Tensor, bits: int) -> torch.Tensor:
+    """Plain PyTorch version of K3: (S,) int64 toggles per window, counting
+    ``PLAIN_BLOCK_ELEMENTS`` elements at a time."""
+    num_strips, t1, lanes = strips.shape
+    out = torch.zeros(num_strips, dtype=torch.int64, device=strips.device)
+    if num_strips == 0 or t1 < 2 or lanes == 0:
+        return out
+    mask = bus_mask(bits)
+    step = max(1, PLAIN_BLOCK_ELEMENTS // (t1 * lanes))
+    for s0 in range(0, num_strips, step):
+        x = strips[s0 : s0 + step].to(torch.int64)
+        out[s0 : s0 + step] = popcount64((x[:, 1:] ^ x[:, :-1]) & mask).sum(dim=(1, 2))
+    return out
+
+
+def strip_toggles(strips: torch.Tensor, bits: int) -> torch.Tensor:
+    """K3: exact toggle total of each stacked stream window, as a (S,) int64
+    tensor on ``strips``' device.
+
+    ``strips`` is (S, T1, L) int32 with int16-range values: window s carries
+    L independent lanes over T1 rows, row 0 its seed, and counts every
+    lane's transitions between consecutive rows on a ``bits``-wide
+    two's-complement bus.
+    """
+    _check_operand(strips, "strips", strips.device, ndim=3)
+    _check_bits(bits)
+    if _on_cpu(strips, "strip_toggles"):
+        return strip_toggles_plain(strips, bits)
+    num_strips, t1, lanes = strips.shape
+    if num_strips == 0 or t1 < 2 or lanes == 0:
+        return torch.zeros(num_strips, dtype=torch.int64, device=strips.device)
+    out = torch.empty(num_strips, dtype=torch.int64, device=strips.device)
+    _launch(
+        "strip_toggles", strips.device, strips.data_ptr(), out.data_ptr(), num_strips, t1,
+        lanes, bits, source="activity_batch",
+    )
+    strip_toggles.launches += 1
+    return out
+
+
+strip_toggles.launches = 0

@@ -10,7 +10,7 @@ import torch
 
 __all__ = ["bus_mask", "popcount64"]
 
-_LOW32 = 0xFFFFFFFF
+_LOW63 = 0x7FFFFFFFFFFFFFFF
 
 
 def bus_mask(bits: int) -> int:
@@ -23,21 +23,24 @@ def bus_mask(bits: int) -> int:
     return -1 if bits == 64 else (1 << bits) - 1
 
 
-def _popcount32(v: torch.Tensor) -> torch.Tensor:
-    # v holds non-negative int64 values below 2^32, so no shift below ever
-    # sees a sign bit and every product stays below 2^63.
-    v = v - ((v >> 1) & 0x55555555)
-    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
-    v = (v + (v >> 4)) & 0x0F0F0F0F
-    return ((v * 0x01010101) >> 24) & 0xFF
+def _popcount63(v: torch.Tensor) -> torch.Tensor:
+    # v holds non-negative int64 values, so no shift below ever sees a sign
+    # bit and no sum leaves the int64 range.
+    v = v - ((v >> 1) & 0x5555555555555555)
+    v = (v & 0x3333333333333333) + ((v >> 2) & 0x3333333333333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F0F0F0F0F
+    v = v + (v >> 8)
+    v = v + (v >> 16)
+    v = v + (v >> 32)
+    return v & 0x7F
 
 
 def popcount64(x: torch.Tensor) -> torch.Tensor:
     """Number of set bits of each int64 element, read as a 64-bit pattern.
 
-    ``>>`` on int64 is arithmetic, so the word is split into two
-    non-negative 32-bit halves before the SWAR steps.
+    ``>>`` on int64 is arithmetic, so the sign bit is counted apart and the
+    SWAR steps run on the non-negative low 63 bits.
     """
     if x.dtype != torch.int64:
         raise TypeError(f"popcount64 takes int64 tensors, got {x.dtype}")
-    return _popcount32(x & _LOW32) + _popcount32((x >> 32) & _LOW32)
+    return _popcount63(x & _LOW63) + (x < 0)

@@ -1,1 +1,3 @@
-"""Runtime support: the typed errors and warnings of the profiler."""
+"""Fault-tolerance runtime: failure taxonomy + retry/degradation ladder
+(``resilience``), deterministic fault injection (``faults``) and device
+health/straggler policies (``health``)."""

@@ -7,11 +7,17 @@ int16 operands:
 
   * the four ``ToggleCounts`` integers of
     ``repro.kernels.activity_profile.ops.profile_gemm_toggles(engine="xla")``;
-  * the reference's ``ActivityProfile`` fields;
+  * the reference's ``ActivityProfile`` fields, from its batched
+    ``profile_network`` and held against those counts;
 
-and, per dataflow, the verdict: ``combine_profiles`` -> ``optimal_aspect_power``
--> ``compare_sym_asym`` per layer -> ``average_comparison``, on the paper's
-geometry for WS and ``os_dataflow_geometry(16, 32, 32)`` for OS.
+and, per dataflow:
+
+  * the verdict: ``combine_profiles`` -> ``optimal_aspect_power`` ->
+    ``compare_sym_asym`` per layer -> ``average_comparison``, on the paper's
+    geometry for WS and ``os_dataflow_geometry(16, 32, 32)`` for OS;
+  * what the batched scheduler did for the whole network: the
+    ``BatchStats`` fields of ``profile_network(..., return_stats=True)``
+    that describe its shape classes and passes (``BATCH_STATS_FIELDS``).
 
     PYTHONPATH=src python tests/_torch_reference.py    # rewrites the file
 
@@ -30,6 +36,9 @@ REFERENCE_PATH = (
 )
 ROWS = COLS = 32
 BITS = 16
+BATCH_STATS_FIELDS = (
+    "jobs", "passes", "pass_reuse", "buckets", "tasks", "strips", "serial_fallbacks",
+)
 
 
 def _verdict(geom, profiles) -> dict:
@@ -67,14 +76,22 @@ def build_reference() -> dict:
         RESNET50_TABLE1,
         _default_b_v,
         conv_to_gemm,
-        profile_conv_layer,
+        profile_network,
         synth_activations,
         synth_weights,
     )
     from repro.kernels.activity_profile.ops import profile_gemm_toggles
 
+    # The batched network's profiles are the per-layer profiles: each is
+    # held below against the counts of the reference's per-GEMM path.
+    profiles, batch_stats = {}, {}
+    for dataflow in ("WS", "OS"):
+        profiles[dataflow], stats = profile_network(
+            RESNET50_TABLE1, ROWS, COLS, BITS, dataflow=dataflow, backend="pallas",
+            use_cache=False, return_stats=True,
+        )
+        batch_stats[dataflow] = {key: getattr(stats, key) for key in BATCH_STATS_FIELDS}
     layers = []
-    profiles = {"WS": [], "OS": []}
     for seed, layer in enumerate(RESNET50_TABLE1):
         g = conv_to_gemm(layer)
         a = quantize_symmetric(synth_activations(g.m, g.k, layer.input_density, seed=seed), BITS).values
@@ -85,13 +102,11 @@ def build_reference() -> dict:
             t = profile_gemm_toggles(
                 a, w, ROWS, COLS, BITS, b_v, dataflow=dataflow, engine="xla"
             )
-            p = profile_conv_layer(
-                layer, ROWS, COLS, BITS, seed=seed, backend="pallas", use_cache=False,
-                dataflow=dataflow,
-            )
-            if (p.a_h, p.a_v) != t.activities(BITS, b_v):
+            p = profiles[dataflow][seed]
+            if (p.a_h, p.a_v) != t.activities(BITS, b_v) or (
+                p.h_transitions, p.v_transitions
+            ) != (t.h_transitions, t.v_transitions):
                 raise AssertionError(f"{layer.name} {dataflow}: profile and counts disagree")
-            profiles[dataflow].append(p)
             entry[dataflow] = {
                 "b_v": b_v,
                 "counts": [t.h_toggles, t.v_toggles, t.h_transitions, t.v_transitions],
@@ -103,6 +118,7 @@ def build_reference() -> dict:
         "cols": COLS,
         "bits": BITS,
         "layers": layers,
+        "batch_stats": batch_stats,
         "verdict": {
             "WS": _verdict(SystolicArrayGeometry.paper_32x32(), profiles["WS"]),
             "OS": _verdict(os_dataflow_geometry(BITS, ROWS, COLS), profiles["OS"]),

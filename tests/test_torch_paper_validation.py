@@ -15,6 +15,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 import repro.core.switching as ref_switching
 import repro.core.workloads as ref_workloads
@@ -41,6 +42,19 @@ from repro_torch.core.workloads import (
 GEOM = SystolicArrayGeometry.paper_32x32()
 PAPER_ACT = BusActivity.paper_resnet50()
 REFERENCE = json.loads(REFERENCE_PATH.read_text())
+
+
+@pytest.fixture(autouse=True)
+def _few_threads():
+    """The suite runs in several worker processes at once, and some tests of
+    other files time their work against a deadline: keep the plain versions'
+    full-size passes from taking every core."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
 
 
 def _same_as_reference(profiles, ref_profiles):
