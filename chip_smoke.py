@@ -13,7 +13,9 @@ Phases (any mismatch exits non-zero; nothing is caught):
    ResNet50 Table-I layer (and the numpy oracle on the small cases); K2 and
    K3 on the stacked buckets the port's scheduler builds for the
    reference's ragged WS and OS job sets, and on the Table-I WS bucket
-   (3776 tasks over 720 strips) and OS stream bucket (496 strips).
+   (3776 tasks over 720 strips) and OS stream bucket (496 strips); K5, K6
+   and K7 at the shapes of the reference's ``tests/test_kernels.py``
+   (integers exact, f32 attention within 1e-5).
 3. The two main paths, on the paper's 32x32 array with int16 operands, WS
    and OS, each with every kernel count set to 0 just before it and read
    just after:
@@ -27,9 +29,25 @@ Phases (any mismatch exits non-zero; nothing is caught):
    batched path's scheduler statistics must equal the reference's, with no
    serial fallback, degraded or skipped job and an empty failure report.
    Every kernel of a path must have been launched in its run.
+   Then the kernel library's path, with the same count discipline, through
+   its entry points (``stream_toggle_count``, ``stream_toggle_count_i64``,
+   ``stream_activity``, ``ws_matmul``, ``flash_attention``):
+   * K5 recounts all 24 Table-I toggle counts of the file (WS and OS,
+     horizontal and vertical, per layer) from the operand streams and, for
+     WS vertical, from each layer's (M, K*N) 37-bit partial-sum stream
+     built on the card; each must equal the file's exactly, and each
+     stream's activity the file's profile's.
+   * K6 runs the six Table-I GEMMs at int16 and at int8, bit-exact against
+     its plain version (wrapped mod 2^32), and the int16 product must equal
+     the wrapped sum of each tile's bottom partial sums; and one bf16
+     product at Qwen3-8B's MLP width (4096 tokens x 4096 x 12288), within
+     1e-5 * (|a| @ |w|) elementwise.
+   * K7 runs Qwen3-8B prefill (H=32, KV=8, D=128, S=4096, causal) and
+     Mixtral-8x7B (S=8192, window 4096) in bf16, within rtol 1.6e-2 and
+     atol 1e-3 of its plain version (f32 math, query chunks of 1024 rows).
 4. Time each kernel at the main paths' shapes with CUDA events (warm-up,
-   then the median of repeated calls) beside its plain version and its
-   bound.
+   then the median of repeated calls) beside its plain version, its bound
+   and, where one PyTorch call computes the same function, that call.
 5. Trace each main path once more with ``torch.profiler`` and print the
    device's busy share and the device time of each kernel and copy.
 
@@ -49,18 +67,45 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 REL_TOL = 1e-12
-# Peak rates of one H100 SXM (NVIDIA's data sheet, at the 700 W limit):
-# HBM bytes/s, and the float32 CUDA-core rate as the rate of 32-bit lane
-# operations (an integer multiply-add counts 2, like a fused multiply-add).
+# Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at the 700 W
+# limit): HBM bytes/s; the float32 CUDA-core rate, used as the rate of
+# 32-bit lane operations (an integer multiply-add counts 2, like a fused
+# multiply-add); and the tensor-core rates for bf16 and int8.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 # Operations per element: WS partial sum = multiply-add (2) + XOR + AND +
 # popcount; a bus value = XOR + AND + popcount.
 OPS_PER_PARTIAL_SUM = 5
 OPS_PER_BUS_VALUE = 3
 # Device-side events the profiler records for itself.
 PROFILER_OWN_EVENTS = ("Activity Buffer Request",)
-KERNELS = ("ws_activity_toggles", "ws_task_toggles", "strip_toggles", "operand_stream_toggles")
+KERNELS = (
+    "ws_activity_toggles", "ws_task_toggles", "strip_toggles", "operand_stream_toggles",
+    "stream_toggles", "ws_gemm", "flash_attention_fwd",
+)
+# Tolerances of the float kernels against their plain versions (f32 math
+# in both; only the order of the sums differs): K6 within GEMM_REL_TOL *
+# (|a| @ |w|) elementwise, since f32 rounding grows with the magnitudes
+# summed; K7 in f32 within F32_TOL (rtol and atol), in bf16 within about
+# two bf16 ulps of the output (2^-7 relative each), BF16_RTOL and BF16_ATOL.
+GEMM_REL_TOL = 1e-5
+F32_TOL = 1e-5
+BF16_RTOL = 1.6e-2
+BF16_ATOL = 1e-3
+# Model widths (src/repro/configs/qwen3_8b.py, mixtral_8x7b.py): both have
+# 32 query heads, 8 KV heads and head_dim 128; Qwen3-8B's MLP is
+# d_model 4096 -> d_ff 12288; Mixtral-8x7B attends over a 4096-key window.
+HEADS, KV_HEADS, HEAD_DIM = 32, 8, 128
+QWEN3_D_MODEL, QWEN3_D_FF = 4096, 12288
+ATTENTION_CASES = (
+    # name, sequence, window
+    ("Qwen3-8B prefill", 4096, None),
+    ("Mixtral-8x7B", 8192, 4096),
+)
+MLP_TOKENS = 4096
+WS_BUS_BITS = 37  # the WS partial-sum bus of the 32x32 array at int16
 BATCH_STATS_FIELDS = (
     "jobs", "passes", "pass_reuse", "buckets", "tasks", "strips", "serial_fallbacks",
 )
@@ -104,6 +149,20 @@ OS_RAGGED = [
     (257, 40, 33, 16, 16, 37, 33),
     (12, 300, 16, 8, 8, 16, 16),
 ]
+# The reference's kernel-library cases: tests/test_kernels.py.
+TOGGLE_SHAPES = [(2, 1), (17, 3), (100, 64), (257, 129), (512, 256), (1000, 7)]
+GEMM_SHAPES = [(128, 128, 128), (1, 1, 1), (200, 300, 170), (127, 129, 255), (384, 256, 512)]
+FLOAT_GEMM_SHAPES = [(130, 260, 140), (64, 512, 64)]
+ATTENTION_SMALL = [
+    # b, h, kv, s, d, causal, window
+    (1, 1, 1, 128, 64, True, None),
+    (2, 4, 2, 200, 64, True, None),
+    (1, 8, 1, 256, 128, True, None),
+    (1, 2, 2, 256, 64, True, 16),
+    (1, 2, 2, 300, 32, True, 128),
+    (1, 2, 1, 512, 32, False, None),
+    (1, 4, 2, 256, 128, False, 64),
+]
 
 
 def fail(msg: str) -> None:
@@ -136,20 +195,45 @@ def main() -> None:
     from repro_torch.core.floorplan import SystolicArrayGeometry, optimal_aspect_power
     from repro_torch.core.optimize import os_dataflow_geometry
     from repro_torch.core.pipeline import BatchStats, ProfileJob
+    from repro_torch.core.quant import quantize_symmetric
     from repro_torch.core.switching import clear_profile_cache, combine_profiles
     from repro_torch.core.workloads import (
         RESNET50_TABLE1,
         conv_layer_job,
+        conv_to_gemm,
         profile_conv_layer,
         profile_network,
+        synth_activations,
+        synth_weights,
     )
     from repro_torch.kernels import _build
     from repro_torch.kernels.activity_profile import kernel as K
     from repro_torch.kernels.activity_profile.ref import profile_gemm_toggles_ref
+    from repro_torch.kernels.bitops import bus_mask
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.kernels.toggle_count import (
+        stream_activity,
+        stream_toggle_count,
+        stream_toggle_count_i64,
+    )
+    from repro_torch.kernels.toggle_count import kernel as TC
+    from repro_torch.kernels.ws_matmul import kernel as WM
+    from repro_torch.kernels.ws_matmul import ws_matmul
+    from repro_torch.kernels.ws_matmul.ref import wrap_int32
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    wrappers = {name: getattr(K, name) for name in KERNELS}
+    # The plain versions' f32 products run in full f32 (PyTorch's default,
+    # set here so that no environment changes it).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    wrappers = {name: getattr(K, name) for name in KERNELS[:4]}
+    wrappers.update(
+        stream_toggles=TC.stream_toggles,
+        ws_gemm=WM.ws_gemm,
+        flash_attention_fwd=FA.flash_attention_fwd,
+    )
 
     # -- phase 1: the card and the build ------------------------------------
     smi = subprocess.run(
@@ -211,6 +295,45 @@ def main() -> None:
         note("ws_task_toggles", got, plain)
         check(got == plain, f"K2 {what}: kernel and plain version differ")
         check(min(got) >= 0, f"K2 {what}: a task flagged a bad index")
+
+    def check_k5(x_t, bits, what) -> int:
+        got = int(TC.stream_toggles(x_t, bits).item())
+        plain = int(TC.stream_toggles_plain(x_t, bits).item())
+        note("stream_toggles", [got], [plain])
+        check(got == plain, f"K5 {what} bits={bits}: kernel {got} plain {plain}")
+        return got
+
+    def check_k6(a_t, w_t, what) -> torch.Tensor:
+        """K6 vs its plain version: integers bit for bit, floats within
+        GEMM_REL_TOL * (|a| @ |w|)."""
+        got = WM.ws_gemm(a_t, w_t)
+        plain = WM.ws_gemm_plain(a_t, w_t)
+        if got.numel() == 0:
+            return got
+        if a_t.dtype.is_floating_point:
+            err = (got - plain).abs()
+            within = err <= GEMM_REL_TOL * (a_t.float().abs() @ w_t.float().abs())
+            ok = bool(torch.isfinite(got).all()) and bool(within.all())
+        else:
+            err = (got.long() - plain.long()).abs()
+            ok = torch.equal(got, plain)
+        max_err["ws_gemm"] = max(max_err["ws_gemm"], err.max().item())
+        check(ok, f"K6 {what}: max |kernel - plain| {err.max().item()!r}")
+        return got
+
+    def check_k7(q, k, v, causal, window, what) -> torch.Tensor:
+        """K7 vs its plain version, within F32_TOL (f32) or BF16_RTOL and
+        BF16_ATOL (bf16) of the plain output, elementwise."""
+        got = FA.flash_attention_fwd(q, k, v, causal=causal, window=window)
+        plain = FA.flash_attention_fwd_plain(q, k, v, causal=causal, window=window)
+        rtol, atol = (F32_TOL, F32_TOL) if q.dtype == torch.float32 else (BF16_RTOL, BF16_ATOL)
+        g, p = got.float(), plain.float()
+        err = (g - p).abs()
+        ok = bool(torch.isfinite(g).all()) and bool((err <= atol + rtol * p.abs()).all())
+        max_err["flash_attention_fwd"] = max(max_err["flash_attention_fwd"], err.max().item())
+        check(ok, f"K7 {what}: max |kernel - plain| {err.max().item()!r} beyond rtol {rtol} "
+                  f"atol {atol}")
+        return got
 
     def stacked(jobs):
         """The WS buckets and OS stream buckets the port's scheduler builds
@@ -304,6 +427,45 @@ def main() -> None:
           f"{len(ws_buckets) + 1} WS buckets and {len(os_buckets) + 1} OS stream buckets",
           flush=True)
 
+    # K5, K6 and K7 at the reference's test shapes (tests/test_kernels.py),
+    # plus the saturating int16 GEMM that wraps the 32-bit accumulator.
+    for shape in TOGGLE_SHAPES:
+        x32 = on_card(rng.integers(-(2**31), 2**31, size=shape))
+        for bits in (8, 16, 32, 37, 48, 64):
+            check_k5(x32, bits, f"int32 {shape}")
+    for shape in ((40, 3), (257, 129)):
+        x64 = torch.from_numpy(rng.integers(-(2**62), 2**62, size=shape)).to(dev)
+        for bits in (8, 16, 32, 37, 48, 64):
+            check_k5(x64, bits, f"int64 {shape}")
+    for m, k, n in GEMM_SHAPES:
+        for dtype in (torch.int8, torch.int16):
+            info = torch.iinfo(dtype)
+            a_t = torch.from_numpy(rng.integers(info.min, info.max + 1, size=(m, k))).to(dtype).to(dev)
+            w_t = torch.from_numpy(rng.integers(info.min, info.max + 1, size=(k, n))).to(dtype).to(dev)
+            check_k6(a_t, w_t, f"{dtype} {(m, k, n)}")
+    sat_a = torch.full((130, 260), 32767, dtype=torch.int16)
+    sat_a[::3] = -32767
+    sat_w = torch.from_numpy(rng.choice([-32767, 32767], size=(260, 129))).to(torch.int16)
+    exact = sat_a.long() @ sat_w.long()
+    wrapped = check_k6(sat_a.to(dev), sat_w.to(dev), "saturating int16 (130, 260, 129)").cpu()
+    check(exact.abs().max() > 2**31 and torch.equal(wrapped, wrap_int32(exact)),
+          "K6: the saturating int16 GEMM does not wrap mod 2^32")
+    for m, k, n in FLOAT_GEMM_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            a_t = torch.from_numpy(rng.normal(size=(m, k))).to(dtype).to(dev)
+            w_t = torch.from_numpy(rng.normal(size=(k, n))).to(dtype).to(dev)
+            check_k6(a_t, w_t, f"{dtype} {(m, k, n)}")
+    for b, h, kv, s_len, d, causal, window in ATTENTION_SMALL:
+        q, k_, v = (torch.from_numpy(rng.normal(size=(b, heads, s_len, d))).float().to(dev)
+                    for heads in (h, kv, kv))
+        check_k7(q, k_, v, causal, window, f"f32 {(b, h, kv, s_len, d)} causal={causal} "
+                                           f"window={window}")
+    print(f"kernel library vs plain versions: K5 on {len(TOGGLE_SHAPES) + 2} streams at 6 bus "
+          f"widths (equal), K6 on {2 * len(GEMM_SHAPES) + 1} integer GEMMs (equal, one "
+          f"wrapping) and {2 * len(FLOAT_GEMM_SHAPES)} float GEMMs (within "
+          f"{GEMM_REL_TOL} * |a| @ |w|), K7 on {len(ATTENTION_SMALL)} f32 cases (within "
+          f"{F32_TOL})", flush=True)
+
     # -- phase 3: the main paths ---------------------------------------------
     ref = json.loads((ROOT / "src" / "repro_torch" / "data" / "table1_reference.json").read_text())
     geoms = {
@@ -393,6 +555,138 @@ def main() -> None:
             check(counts[name] > 0, f"{name} was not launched on the {path} path")
             launches[name] = counts[name]
 
+    # -- phase 3b: the kernel library's path -----------------------------------
+    # Inputs are set up first: the Table-I operands at int16 (as above) and
+    # int8 (the same seeded floats, quantized to 8 bits), and seeded bf16
+    # activations, weights and attention inputs made on the card.
+    lib_layers = []
+    for i, ((name, a, w), layer, want) in enumerate(zip(operands, RESNET50_TABLE1, ref["layers"])):
+        g = conv_to_gemm(layer)
+        a8 = quantize_symmetric(synth_activations(g.m, g.k, layer.input_density, seed=i), 8).values
+        w8 = quantize_symmetric(synth_weights(g.k, g.n, seed=i + 1), 8).values
+        lib_layers.append((name, a, w, a8, w8, want))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def randn_bf16(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+    mlp_x = randn_bf16(MLP_TOKENS, QWEN3_D_MODEL)
+    mlp_w = randn_bf16(QWEN3_D_MODEL, QWEN3_D_FF, scale=QWEN3_D_MODEL ** -0.5)
+    attn_inputs = [
+        (case, s_len, window,
+         randn_bf16(1, HEADS, s_len, HEAD_DIM), randn_bf16(1, KV_HEADS, s_len, HEAD_DIM),
+         randn_bf16(1, KV_HEADS, s_len, HEAD_DIM))
+        for case, s_len, window in ATTENTION_CASES
+    ]
+    rows = cols = 32
+
+    def partial_sums(a_t, w_t):
+        """(M, K, N) int64 WS partial sums: S[t, k, n] = sum of a[t, k'] *
+        w[k', n] over k' <= k within k's tile of ``rows`` reduction rows."""
+        m, k = a_t.shape
+        n = w_t.shape[1]
+        k_pad = -(-k // rows) * rows
+        a64 = torch.nn.functional.pad(a_t.long(), (0, k_pad - k))
+        w64 = torch.nn.functional.pad(w_t.long(), (0, 0, 0, k_pad - k))
+        sums = (a64[:, :, None] * w64[None]).view(m, k_pad // rows, rows, n).cumsum(dim=2)
+        return sums.view(m, k_pad, n)[:, :k]
+
+    def library_path(checked: bool) -> None:
+        """The kernel library's entry points at full width; with ``checked``,
+        every result is held against the reference file or the plain
+        version (which launch no kernel)."""
+        for name, a, w, a8, w8, want in lib_layers:
+            m, k = a.shape
+            n = w.shape[1]
+            n_tiles, m_tiles = -(-n // cols), -(-m // rows)
+            a_t, w_t = on_card(a), on_card(w)
+            at_t = a_t.t().contiguous()
+            # K5: the operand streams (A is post-ReLU int16, so its 32-bit
+            # words toggle as its 16-bit bus does; W is signed and is read
+            # on the 16-bit bus).
+            counts = {
+                "WS": [n_tiles * stream_toggle_count(a_t)],
+                "OS": [n_tiles * stream_toggle_count(at_t),
+                       m_tiles * stream_toggle_count_i64(w_t.long() & bus_mask(16))],
+            }
+            acts = {
+                ("WS", "a_h"): stream_activity(a_t, 16),
+                ("OS", "a_h"): stream_activity(at_t, 16),
+                ("OS", "a_v"): stream_activity(w_t, 16),
+            }
+            # K6 at int16 and int8
+            a16, w16 = a_t.to(torch.int16), w_t.to(torch.int16)
+            a8_t, w8_t = (torch.from_numpy(x.astype(np.int8)).to(dev) for x in (a8, w8))
+            prod16 = ws_matmul(a16, w16)
+            prod8 = ws_matmul(a8_t, w8_t)
+            # K5 on the WS vertical bus: the (M, K*N) partial-sum stream
+            sums = partial_sums(a_t, w_t)
+            if checked:
+                bottoms = [min(k0 + rows, k) - 1 for k0 in range(0, k, rows)]
+                check(torch.equal(wrap_int32(sums[:, bottoms, :].sum(dim=1)), prod16),
+                      f"K6 {name} int16: not the wrapped sum of the tiles' bottom partial sums")
+            sums &= bus_mask(WS_BUS_BITS)
+            stream = sums.reshape(m, k * n)
+            counts["WS"].append(stream_toggle_count_i64(stream))
+            acts["WS", "a_v"] = stream_activity(stream, WS_BUS_BITS)
+            del sums, stream
+            if not checked:
+                continue
+            for dataflow in ("WS", "OS"):
+                check(counts[dataflow] == want[dataflow]["counts"][:2],
+                      f"K5 {name} {dataflow}: recount {counts[dataflow]} reference "
+                      f"{want[dataflow]['counts'][:2]}")
+            for (dataflow, key), got in acts.items():
+                check(got == want[dataflow]["profile"][key],
+                      f"K5 {name} {dataflow} {key}: {got!r} reference "
+                      f"{want[dataflow]['profile'][key]!r}")
+            for got, x, y, bits in ((prod16, a16, w16, 16), (prod8, a8_t, w8_t, 8)):
+                plain = WM.ws_gemm_plain(x, y)
+                check(torch.equal(got, plain), f"K6 {name} int{bits}: kernel and plain version differ")
+            print(f"  library {name}: K5 recount WS {counts['WS']} OS {counts['OS']} equal the "
+                  f"reference; K6 {m}x{k}x{n} int16 and int8 equal the plain version")
+        mlp_y = ws_matmul(mlp_x, mlp_w)
+        if checked:
+            plain = WM.ws_gemm_plain(mlp_x, mlp_w)
+            err = (mlp_y - plain).abs()
+            bound = GEMM_REL_TOL * (mlp_x.float().abs() @ mlp_w.float().abs())
+            check(bool(torch.isfinite(mlp_y).all()) and bool((err <= bound).all()),
+                  f"K6 bf16 MLP: |kernel - plain| beyond {GEMM_REL_TOL} * |a| @ |w|")
+            max_err["ws_gemm"] = max(max_err["ws_gemm"], err.max().item())
+            print(f"  library Qwen3-8B MLP bf16 {tuple(mlp_x.shape)} @ {tuple(mlp_w.shape)}: "
+                  f"max |kernel - plain| {err.max().item()!r}, within {GEMM_REL_TOL} * |a| @ |w|")
+            del plain, err, bound
+        del mlp_y
+        for case, s_len, window, q, k_, v in attn_inputs:
+            out = flash_attention(q, k_, v, causal=True, window=window)
+            if checked:
+                plain = FA.flash_attention_fwd_plain(q, k_, v, causal=True, window=window).float()
+                err = (out.float() - plain).abs()
+                ok = (bool(torch.isfinite(out).all())
+                      and bool((err <= BF16_ATOL + BF16_RTOL * plain.abs()).all()))
+                max_err["flash_attention_fwd"] = max(max_err["flash_attention_fwd"], err.max().item())
+                check(ok, f"K7 {case}: max |kernel - plain| {err.max().item()!r} beyond rtol "
+                          f"{BF16_RTOL} atol {BF16_ATOL}")
+                print(f"  library {case} bf16 H={HEADS} KV={KV_HEADS} S={s_len} D={HEAD_DIM} "
+                      f"window={window}: max |kernel - plain| {err.max().item()!r} (rtol "
+                      f"{BF16_RTOL}, atol {BF16_ATOL})")
+                del plain, err
+
+    library_kernels = ("stream_toggles", "ws_gemm", "flash_attention_fwd")
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    library_path(checked=True)
+    torch.cuda.synchronize()
+    checked_ms = (time.perf_counter() - t0) * 1e3
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    print(f"kernel-library path (with its checks): {checked_ms:.1f} ms; launches {counts}", flush=True)
+    for name in library_kernels:
+        check(counts[name] > 0, f"{name} was not launched on the kernel-library path")
+        launches[name] = counts[name]
+
     # -- phase 4: times at the main paths' shapes ----------------------------
     def median_ms(fn, calls: int, bursts: int = 5) -> float:
         """Median over bursts of the mean per-call time of ``calls``
@@ -411,19 +705,34 @@ def main() -> None:
                 times.append(start.elapsed_time(end) / calls)
         return statistics.median(times)
 
-    def bound_ms(n_bytes: int, n_ops: int) -> tuple[float, str]:
+    def bound_ms(n_bytes: int, n_ops: int, ops_per_s: float = PEAK_OPS_PER_S) -> tuple[float, str]:
         t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = n_ops / PEAK_OPS_PER_S * 1e3
+        t_ops = n_ops / ops_per_s * 1e3
         return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
-    totals = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": {}} for name in KERNELS}
+    totals = {
+        name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": {}, "library_ms": None}
+        for name in KERNELS
+    }
+    gemm_parts: dict[str, dict] = {}
 
-    def add(name, ms, plain, bound, by):
+    def add(name, ms, plain, bound, by, library=None, part=None):
         t = totals[name]
         t["ms"] += ms
         t["plain_ms"] += plain
         t["bound_ms"] += bound
         t["bound_by"][by] = t["bound_by"].get(by, 0.0) + bound
+        if library is not None:
+            t["library_ms"] = (t["library_ms"] or 0.0) + library
+        if part is not None:
+            q = gemm_parts.setdefault(part, {"calls": 0, "ms": 0.0, "plain_ms": 0.0,
+                                             "bound_ms": 0.0, "library_ms": None})
+            q["calls"] += 1
+            q["ms"] += ms
+            q["plain_ms"] += plain
+            q["bound_ms"] += bound
+            if library is not None:
+                q["library_ms"] = (q["library_ms"] or 0.0) + library
 
     print("times (ms per call; bound = max(bytes / 3.35 TB/s, ops / 67 Tops/s)):")
     for name, a, w in operands:
@@ -472,17 +781,109 @@ def main() -> None:
         print(f"  K3 Table-I {what} {tuple(strips_x.shape)}: {ms:.4f} ms, plain {plain:.4f} ms, "
               f"bound {bound:.6f} ms ({by})")
 
+    # K5: each stream the kernel-library path counts, at its bus width; every
+    # value read once, 3 operations each (XOR, AND, popcount).
+    print("  kernel library (bound = max(bytes / 3.35 TB/s, ops / the rate of the operands' "
+          "type: 67 Tops/s lane operations, 989 TFLOP/s bf16, 1979 Tops/s int8)):")
+    mask16 = bus_mask(16)
+    for name, a, w, a8, w8, _ in lib_layers:
+        m, k = a.shape
+        n = w.shape[1]
+        a_t, w_t = on_card(a), on_card(w)
+        at_t = a_t.t().contiguous()
+        sums = partial_sums(a_t, w_t)
+        sums &= bus_mask(WS_BUS_BITS)
+        stream = sums.reshape(m, k * n)
+        layer_ms = layer_plain = layer_bound = 0.0
+        for x, bits in ((a_t, 32), (at_t, 32), (w_t.long() & mask16, 64), (stream, 64),
+                        (a_t, 16), (at_t, 16), (w_t, 16), (stream, WS_BUS_BITS)):
+            ms = median_ms(lambda: TC.stream_toggles(x, bits), calls=20)
+            plain = median_ms(lambda: TC.stream_toggles_plain(x, bits), calls=2, bursts=3)
+            bound, by = bound_ms(x.numel() * x.element_size() + 8,
+                                 OPS_PER_BUS_VALUE * (x.shape[0] - 1) * x.shape[1])
+            add("stream_toggles", ms, plain, bound, by)
+            layer_ms, layer_plain, layer_bound = layer_ms + ms, layer_plain + plain, layer_bound + bound
+        print(f"  K5 {name} 8 streams (the largest {tuple(stream.shape)} int64): {layer_ms:.4f} ms, "
+              f"plain {layer_plain:.4f} ms, bound {layer_bound:.5f} ms (bytes)")
+        del sums, stream
+        # K6 at int16 (no PyTorch CUDA int16 GEMM) and int8 (torch._int_mm)
+        for x_np, y_np, dtype, rate, part in ((a, w, torch.int16, PEAK_OPS_PER_S, "int16"),
+                                              (a8, w8, torch.int8, PEAK_INT8_OPS, "int8")):
+            x = torch.from_numpy(x_np).to(dtype).to(dev)
+            y = torch.from_numpy(y_np).to(dtype).to(dev)
+            ms = median_ms(lambda: WM.ws_gemm(x, y), calls=20)
+            plain = median_ms(lambda: WM.ws_gemm_plain(x, y), calls=5, bursts=3)
+            library = median_ms(lambda: torch._int_mm(x, y), calls=20) if part == "int8" else None
+            size = x.element_size()
+            bound, by = bound_ms(size * (m * k + k * n) + 4 * m * n, 2 * m * k * n, rate)
+            add("ws_gemm", ms, plain, bound, by, library, part)
+            lib_text = f"torch._int_mm {library:.4f} ms" if library is not None else "no library call"
+            print(f"  K6 {name} {part} {m}x{k}x{n}: {ms:.4f} ms, plain {plain:.4f} ms, {lib_text}, "
+                  f"bound {bound:.5f} ms ({by})")
+    m, k = mlp_x.shape
+    n = mlp_w.shape[1]
+    ms = median_ms(lambda: WM.ws_gemm(mlp_x, mlp_w), calls=3, bursts=3)
+    plain = median_ms(lambda: WM.ws_gemm_plain(mlp_x, mlp_w), calls=3, bursts=3)
+    library = median_ms(lambda: torch.matmul(mlp_x, mlp_w), calls=10, bursts=3)
+    bound, by = bound_ms(2 * (m * k + k * n) + 4 * m * n, 2 * m * k * n, PEAK_BF16_FLOPS)
+    add("ws_gemm", ms, plain, bound, by, library, "bf16")
+    print(f"  K6 Qwen3-8B MLP bf16 {m}x{k}x{n}: {ms:.4f} ms, plain (f32) {plain:.4f} ms, "
+          f"torch.matmul (bf16 out) {library:.4f} ms, bound {bound:.5f} ms ({by})")
+    # K7: 4 * D operations per visible (query, key) pair; the library call
+    # is scaled_dot_product_attention on K and V repeated to the query heads
+    # (outside the timing), with is_causal or a boolean window mask.
+    for case, s_len, window, q, k_, v in attn_inputs:
+        rep = HEADS // KV_HEADS
+        k_rep, v_rep = k_.repeat_interleave(rep, dim=1), v.repeat_interleave(rep, dim=1)
+        if window is None:
+            visible = s_len * (s_len + 1) // 2
+
+            def sdpa():
+                return torch.nn.functional.scaled_dot_product_attention(q, k_rep, v_rep, is_causal=True)
+        else:
+            visible = sum(min(t + 1, window) for t in range(s_len))
+            ids = torch.arange(s_len, device=dev)
+            keep = (ids[:, None] >= ids[None, :]) & (ids[:, None] - ids[None, :] < window)
+
+            def sdpa():
+                return torch.nn.functional.scaled_dot_product_attention(q, k_rep, v_rep, attn_mask=keep)
+        ms = median_ms(lambda: FA.flash_attention_fwd(q, k_, v, causal=True, window=window),
+                       calls=3, bursts=3)
+        plain = median_ms(lambda: FA.flash_attention_fwd_plain(q, k_, v, causal=True, window=window),
+                          calls=1, bursts=3)
+        library = median_ms(sdpa, calls=5, bursts=3)
+        n_bytes = sum(x.numel() * x.element_size() for x in (q, k_, v, q))
+        bound, by = bound_ms(n_bytes, 4 * HEAD_DIM * HEADS * visible, PEAK_BF16_FLOPS)
+        add("flash_attention_fwd", ms, plain, bound, by, library)
+        print(f"  K7 {case} bf16 S={s_len} window={window} ({visible} visible pairs per head): "
+              f"{ms:.4f} ms, plain {plain:.4f} ms, scaled_dot_product_attention {library:.4f} ms, "
+              f"bound {bound:.5f} ms ({by})")
+        del k_rep, v_rep
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    library_path(checked=False)
+    torch.cuda.synchronize()
+    main_ms["library"] = (time.perf_counter() - t0) * 1e3
+    print(f"kernel-library path wall (no checks): {main_ms['library']:.1f} ms", flush=True)
+
     # -- phase 5: where each main path's time goes -----------------------------
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for path, run in (("per-GEMM", per_gemm_path), ("batched", batched_path)):
+    def both_dataflows(run):
+        def go():
+            for dataflow in ("WS", "OS"):
+                run(dataflow)
+        return go
+
+    for path, go in (("per-GEMM path (WS + OS, cache cleared", both_dataflows(per_gemm_path)),
+                     ("batched path (WS + OS, cache cleared", both_dataflows(batched_path)),
+                     ("kernel-library path (no checks", lambda: library_path(checked=False))):
         clear_profile_cache()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            for dataflow in ("WS", "OS"):
-                run(dataflow)
+            go()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         # Device-side events only (kernels and copies); host ops that launched
@@ -494,7 +895,7 @@ def main() -> None:
             if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
         }
         busy_ms = sum(ms for key, (ms, _) in device_ms.items() if key not in PROFILER_OWN_EVENTS)
-        print(f"trace of the {path} path (WS + OS, cache cleared, profiler on): wall "
+        print(f"trace of the {path}, profiler on): wall "
               f"{wall_ms:.1f} ms, device busy {busy_ms:.4f} ms = {100 * busy_ms / wall_ms:.3f}% "
               f"of the wall time")
         for key, (ms, count) in sorted(device_ms.items(), key=lambda kv: -kv[1][0])[:10]:
@@ -517,11 +918,23 @@ def main() -> None:
             "src/repro_torch/csrc/activity_profile.cu",
             "src/repro/kernels/activity_profile/kernel.py:249",
         ),
+        "stream_toggles": (
+            "src/repro_torch/csrc/toggle_count.cu",
+            "src/repro/kernels/toggle_count/kernel.py:34",
+        ),
+        "ws_gemm": (
+            "src/repro_torch/csrc/ws_matmul.cu",
+            "src/repro/kernels/ws_matmul/kernel.py:55",
+        ),
+        "flash_attention_fwd": (
+            "src/repro_torch/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:112",
+        ),
     }
     kernels = []
     for name, t in totals.items():
         source, replaces = meta[name]
-        kernels.append({
+        row = {
             "name": name,
             "route": "cuda",
             "source": source,
@@ -532,8 +945,14 @@ def main() -> None:
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
             "bound_by": max(t["bound_by"], key=t["bound_by"].get),
-            "library_ms": None,  # no single PyTorch call counts bus toggles
-        })
+            # None for the toggle counters: no PyTorch call counts bus toggles
+            "library_ms": t["library_ms"],
+        }
+        if name == "ws_gemm":
+            row["library_covers"] = ("int8 (torch._int_mm) and bf16 (torch.matmul) calls; "
+                                     "PyTorch has no CUDA int16 GEMM")
+            row["parts"] = gemm_parts
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({

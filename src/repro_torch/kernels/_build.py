@@ -30,6 +30,9 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_U64 = ctypes.c_uint64
+_F = ctypes.c_float
 # C signature of every entry point: (argtypes, restype) by source and name.
 SOURCES: dict[str, dict[str, tuple[list, type]]] = {
     "activity_profile": {
@@ -44,6 +47,19 @@ SOURCES: dict[str, dict[str, tuple[list, type]]] = {
         "ws_task_toggles": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
         # strips, out, num_strips, t1, lanes, bits, stream
         "strip_toggles": ([_P, _P, _I, _I, _I, _I, _P], _I),
+    },
+    "toggle_count": {
+        # x, out, t_len, lanes, elem_bytes, mask, stream
+        "stream_toggles": ([_P, _P, _L, _L, _I, _U64, _P], _I),
+    },
+    "ws_matmul": {
+        # a, w, out, m, k, n, dtype, stream
+        "ws_matmul": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
+    },
+    "flash_attention": {
+        # q, k, v, o, batch, heads, kv_heads, s_len, head_dim, dtype, causal,
+        # window, scale, stream
+        "flash_attention_fwd": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P], _I),
     },
 }
 

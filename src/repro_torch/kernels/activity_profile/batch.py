@@ -113,7 +113,7 @@ def _engine_device(engine: str, device: torch.device | None) -> torch.device:
     if engine == "auto":
         engine = "cuda"
     if device is None:
-        return ops._engine_device(engine)
+        return ops.engine_device(engine)
     want = {"cuda": "cuda", "torch": "cpu"}.get(engine)
     if want is None:
         # typed (still a ValueError subclass): an unknown engine is a caller

@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels._engine import launch, on_cpu
 from repro_torch.kernels.bitops import bus_mask, popcount64
 
 __all__ = [
@@ -109,23 +109,6 @@ def _check_operand(x: torch.Tensor, name: str, device: torch.device, ndim: int =
         raise ValueError(f"{name} is too large for 32-bit extents")
 
 
-def _on_cpu(x: torch.Tensor, fn_name: str) -> bool:
-    """True for a CPU tensor (plain version), False for a CUDA one (kernel)."""
-    if x.device.type == "cpu":
-        return True
-    if x.device.type != "cuda":
-        raise ValueError(f"{fn_name} runs on cpu or cuda tensors, not {x.device}")
-    return False
-
-
-def _launch(fn_name: str, device: torch.device, *args, source: str = "activity_profile") -> None:
-    lib = _build.load(source)
-    with torch.cuda.device(device):
-        err = getattr(lib, fn_name)(*args, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{fn_name}: CUDA launch failed with error {err}")
-
-
 def ws_activity_toggles_plain(
     a: torch.Tensor,
     w: torch.Tensor,
@@ -184,15 +167,15 @@ def ws_activity_toggles(
     if rows < 1 or cols < 1:
         raise ValueError("rows and cols must be positive")
     _check_bits(b_h, b_v)
-    if _on_cpu(a, "ws_activity_toggles"):
+    if on_cpu(a, "ws_activity_toggles"):
         return ws_activity_toggles_plain(a, w, rows, cols, b_h, b_v)
     m, k = a.shape
     n = w.shape[1]
     out = torch.zeros(2, dtype=torch.int64, device=a.device)
     if m < 2 or k == 0 or n == 0:
         return out
-    _launch(
-        "ws_activity_toggles", a.device,
+    launch(
+        "activity_profile", "ws_activity_toggles", a.device,
         a.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n, rows, cols, b_h, b_v,
     )
     ws_activity_toggles.launches += 1
@@ -230,14 +213,15 @@ def operand_stream_toggles(x: torch.Tensor, bits: int) -> torch.Tensor:
     device.  Lane l carries x[:, l]; lanes never mix."""
     _check_operand(x, "x", x.device)
     _check_bits(bits)
-    if _on_cpu(x, "operand_stream_toggles"):
+    if on_cpu(x, "operand_stream_toggles"):
         return operand_stream_toggles_plain(x, bits)
     t, lanes = x.shape
     out = torch.zeros(1, dtype=torch.int64, device=x.device)
     if t < 2 or lanes == 0:
         return out
-    _launch(
-        "operand_stream_toggles", x.device, x.data_ptr(), out.data_ptr(), t, lanes, bits
+    launch(
+        "activity_profile", "operand_stream_toggles", x.device,
+        x.data_ptr(), out.data_ptr(), t, lanes, bits,
     )
     operand_stream_toggles.launches += 1
     return out
@@ -328,7 +312,7 @@ def ws_task_toggles(
     if strips.shape[1] < 2:
         raise ValueError("strips need a seed row and at least one time step")
     _check_bits(b_v)
-    if _on_cpu(strips, "ws_task_toggles"):
+    if on_cpu(strips, "ws_task_toggles"):
         return ws_task_toggles_plain(strips, w_tiles, strip_ids, w_ids, valid_r, b_v)
     num_tasks = strip_ids.shape[0]
     out = torch.empty(num_tasks, dtype=torch.int64, device=device)
@@ -336,11 +320,11 @@ def ws_task_toggles(
         return out
     num_strips, t1, rows = strips.shape
     num_tiles, _, cols = w_tiles.shape
-    _launch(
-        "ws_task_toggles", device,
+    launch(
+        "activity_batch", "ws_task_toggles", device,
         strips.data_ptr(), w_tiles.data_ptr(), strip_ids.data_ptr(), w_ids.data_ptr(),
         valid_r.data_ptr(), out.data_ptr(), num_tasks, num_strips, num_tiles, t1, rows, cols,
-        b_v, source="activity_batch",
+        b_v,
     )
     ws_task_toggles.launches += 1
     return out
@@ -375,15 +359,15 @@ def strip_toggles(strips: torch.Tensor, bits: int) -> torch.Tensor:
     """
     _check_operand(strips, "strips", strips.device, ndim=3)
     _check_bits(bits)
-    if _on_cpu(strips, "strip_toggles"):
+    if on_cpu(strips, "strip_toggles"):
         return strip_toggles_plain(strips, bits)
     num_strips, t1, lanes = strips.shape
     if num_strips == 0 or t1 < 2 or lanes == 0:
         return torch.zeros(num_strips, dtype=torch.int64, device=strips.device)
     out = torch.empty(num_strips, dtype=torch.int64, device=strips.device)
-    _launch(
-        "strip_toggles", strips.device, strips.data_ptr(), out.data_ptr(), num_strips, t1,
-        lanes, bits, source="activity_batch",
+    launch(
+        "activity_batch", "strip_toggles", strips.device,
+        strips.data_ptr(), out.data_ptr(), num_strips, t1, lanes, bits,
     )
     strip_toggles.launches += 1
     return out

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.switching import os_stream_counts
+from repro_torch.kernels._engine import ENGINES, engine_device
 from repro_torch.kernels.activity_profile.kernel import (
     operand_stream_toggles,
     ws_activity_toggles,
@@ -50,7 +51,6 @@ __all__ = [
     "stream_toggle_total",
 ]
 
-ENGINES = ("cuda", "torch")
 INT16_SAFE_MAX = (1 << 15) - 1
 # Bounds of the reference engine (whose int32 partials they protect): K_pad
 # below 2^25, rows below 2^15, OS stream lanes below 2^25.
@@ -95,18 +95,6 @@ def operands_fit_fused(a: np.ndarray, w: np.ndarray) -> bool:
     return _fits_int16(a) and _fits_int16(w)
 
 
-def _engine_device(engine: str) -> torch.device:
-    if engine == "torch":
-        return torch.device("cpu")
-    if engine == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "engine='cuda' needs a CUDA device; use engine='torch' for the CPU"
-            )
-        return torch.device("cuda", torch.cuda.current_device())
-    raise ValueError(f"unknown engine {engine!r}; expected one of {ENGINES}")
-
-
 def _to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
     """Narrow a contract-checked int16-range array to int32 on the host and
     copy it to ``device`` once."""
@@ -122,7 +110,7 @@ def stream_toggle_total(x: np.ndarray, bits: int, *, engine: str = "cuda") -> in
     """
     x = np.asarray(x)
     t, lanes = x.shape
-    device = _engine_device(engine)
+    device = engine_device(engine)
     if t < 2 or lanes == 0:
         return 0
     if not _fits_int16(x):
@@ -186,7 +174,7 @@ def profile_gemm_toggles(
         raise ValueError("bus widths must be in [1, 64]")
     if dataflow not in ("WS", "OS"):
         raise ValueError(f"unknown dataflow {dataflow!r}")
-    device = _engine_device(engine)
+    device = engine_device(engine)
     if not operands_fit_fused(a, w):
         raise ValueError(
             "fused engine needs int16-range operands (products must fit int32); "

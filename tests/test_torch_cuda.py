@@ -1,6 +1,8 @@
 """The CUDA kernels on the card: each against its plain PyTorch version and
 the numpy oracle, and ``backend="auto"`` resolving to them, per GEMM (K1,
-K4) and through the batched pipeline (K2, K3).
+K4) and through the batched pipeline (K2, K3); and the kernel library's
+entry points (K5 stream toggles, K6 GEMM, K7 attention) against their
+plain versions.
 
 Marked ``cuda``: every test skips, with its reason, where no CUDA device is
 available.  On a machine with one:
@@ -18,6 +20,17 @@ from repro_torch.core.switching import profile_gemm
 from repro_torch.kernels.activity_profile import kernel as K
 from repro_torch.kernels.activity_profile.ops import profile_gemm_toggles
 from repro_torch.kernels.activity_profile.ref import profile_gemm_toggles_ref
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import kernel as FA
+from repro_torch.kernels.toggle_count import (
+    stream_activity,
+    stream_toggle_count,
+    stream_toggle_count_i64,
+)
+from repro_torch.kernels.toggle_count import kernel as TC
+from repro_torch.kernels.ws_matmul import kernel as WM
+from repro_torch.kernels.ws_matmul import ws_matmul
+from repro_torch.kernels.ws_matmul.ref import wrap_int32
 from repro_torch.runtime import faults
 
 pytestmark = pytest.mark.cuda
@@ -175,3 +188,114 @@ def test_degrade_recovers_on_the_card():
             p.v_transitions,
         )
         assert got == want, (job.dataflow, job.gemm_shape())
+
+
+# ---------------------------------------------------------------------------
+# the kernel library: K5 stream toggles, K6 GEMM, K7 attention
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (17, 3), (257, 129), (1000, 7), (300, 4097)])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_stream_toggles_match_plain(card, shape, dtype):
+    rng = np.random.default_rng(list(shape))
+    hi = 2**31 if dtype == torch.int32 else 2**62
+    x = torch.from_numpy(rng.integers(-hi, hi, size=shape)).to(dtype).to(card)
+    before = TC.stream_toggles.launches
+    for bits in (8, 16, 32, 37, 48, 64):
+        got = TC.stream_toggles(x, bits)
+        torch.cuda.synchronize()
+        assert got.tolist() == TC.stream_toggles_plain(x, bits).tolist(), bits
+    assert TC.stream_toggles.launches == before + 6
+
+
+def test_toggle_count_entry_points_on_the_card(card):
+    rng = np.random.default_rng(5)
+    vals = rng.integers(-(2**40), 2**40, size=(64, 9))
+    x = torch.from_numpy(vals).to(card)
+    assert stream_toggle_count_i64(x) == stream_toggle_count_i64(vals, engine="torch")
+    assert stream_toggle_count(vals) == stream_toggle_count(vals, engine="torch")
+    assert stream_toggle_count(vals[:, 0]) == stream_toggle_count(vals[:, 0], engine="torch")
+    for bits in (16, 37, 64):
+        assert stream_activity(x, bits) == stream_activity(vals, bits, engine="torch")
+    assert stream_toggle_count(vals[:1]) == 0
+
+
+@pytest.mark.parametrize(
+    "m,k,n", [(1, 1, 1), (127, 129, 255), (200, 300, 170), (128, 128, 128), (3136, 256, 64)]
+)
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int16])
+def test_ws_gemm_int_matches_plain(card, m, k, n, dtype):
+    rng = np.random.default_rng([m, k, n])
+    info = torch.iinfo(dtype)
+    a = torch.from_numpy(rng.integers(info.min, info.max + 1, size=(m, k))).to(dtype).to(card)
+    w = torch.from_numpy(rng.integers(info.min, info.max + 1, size=(k, n))).to(dtype).to(card)
+    before = WM.ws_gemm.launches
+    got = ws_matmul(a, w)
+    torch.cuda.synchronize()
+    assert WM.ws_gemm.launches == before + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got, WM.ws_gemm_plain(a, w))
+
+
+def test_ws_gemm_wraps_mod_2_32(card):
+    a = torch.full((130, 260), 32767, dtype=torch.int16)
+    a[::3] = -32767
+    w = torch.full((260, 129), 32767, dtype=torch.int16)
+    w[:, ::2] = -32767
+    exact = a.long() @ w.long()
+    assert exact.abs().max() > 2**31
+    got = ws_matmul(a.to(card), w.to(card)).cpu()
+    assert torch.equal(got, wrap_int32(exact))
+
+
+@pytest.mark.parametrize("m,k,n", [(130, 260, 140), (64, 512, 64), (1, 3, 300)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ws_gemm_float_matches_plain(card, m, k, n, dtype):
+    gen = torch.Generator().manual_seed(m * k + n)
+    a = torch.randn(m, k, generator=gen).to(dtype).to(card)
+    w = torch.randn(k, n, generator=gen).to(dtype).to(card)
+    got = ws_matmul(a, w)
+    plain = WM.ws_gemm_plain(a, w)
+    scale = a.float().abs() @ w.float().abs()
+    assert got.dtype == torch.float32
+    assert ((got - plain).abs() <= 1e-5 * scale).all()
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize(
+    "b,h,kv,s,causal,window",
+    [
+        (1, 1, 1, 128, True, None),
+        (2, 4, 2, 200, True, None),  # S not a multiple of the 64-row query tile
+        (1, 2, 2, 300, True, 70),
+        (1, 4, 1, 256, False, None),
+        (1, 2, 2, 256, False, 64),
+        (1, 2, 1, 96, True, 0),  # every row sees no key
+    ],
+)
+def test_flash_attention_f32_matches_plain(card, d, b, h, kv, s, causal, window):
+    gen = torch.Generator().manual_seed(s * d + h)
+    q = torch.randn(b, h, s, d, generator=gen).to(card)
+    k = torch.randn(b, kv, s, d, generator=gen).to(card)
+    v = torch.randn(b, kv, s, d, generator=gen).to(card)
+    before = FA.flash_attention_fwd.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert FA.flash_attention_fwd.launches == before + 1
+    plain = FA.flash_attention_fwd_plain(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_bf16_matches_plain(card, d):
+    gen = torch.Generator().manual_seed(d)
+    q, k, v = (
+        torch.randn(1, heads, 1000, d, generator=gen).to(torch.bfloat16).to(card)
+        for heads in (8, 2, 2)
+    )
+    for window in (None, 300):
+        got = flash_attention(q, k, v, window=window)
+        plain = FA.flash_attention_fwd_plain(q, k, v, window=window)
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got.float(), plain.float(), rtol=1.6e-2, atol=1e-3)

@@ -1,0 +1,439 @@
+"""Parity copy of the kernel-library cases of ``tests/test_kernels.py`` on
+the port's CPU path, plus the int32 accumulator wrap and the Table-I
+operand-stream recount.
+
+The port's entry points run with ``engine="torch"``: the plain PyTorch
+versions of kernels K5 (toggle counting), K6 (the weight-stationary GEMM)
+and K7 (fused attention), on the CPU.  On the same seeded numpy inputs they
+must agree with the JAX package (Pallas in interpret mode).  Tolerances:
+
+* counts and integer products: exact; activities are the same float
+  division of equal integers, so they are equal too;
+* float GEMMs (f32 sums of f32 or exact bf16 products): within
+  1e-5 * (|a| @ |w|) elementwise, since the two packages add the K products
+  in different orders and f32 rounding grows with the magnitudes summed,
+  not with the result;
+* attention: f32 within rtol 1e-5, atol 1e-5 (only the order of the sums
+  differs); bf16 within rtol 5e-2, atol 5e-2, as ``tests/test_kernels.py``
+  holds the reference to its oracle.
+
+The CUDA kernels run only on the card (``tests/test_torch_cuda.py`` and
+``chip_smoke.py``).  All three packages share this one file, so their JAX
+and PyTorch set-up is paid once.
+"""
+
+import json
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.ops import flash_attention as ref_flash_attention
+from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref
+from repro.kernels.toggle_count.ops import stream_activity as ref_stream_activity
+from repro.kernels.toggle_count.ops import stream_toggle_count as ref_stream_toggle_count
+from repro.kernels.toggle_count.ops import (
+    stream_toggle_count_i64 as ref_stream_toggle_count_i64,
+)
+from repro.kernels.ws_matmul.ops import ws_matmul as ref_ws_matmul
+from repro_torch.core.switching import stream_toggle_rate
+from repro_torch.core.workloads import RESNET50_TABLE1, conv_layer_job
+from repro_torch.kernels._engine import CudaUnavailableError
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import kernel as FA
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.toggle_count import (
+    stream_activity,
+    stream_toggle_count,
+    stream_toggle_count_i64,
+)
+from repro_torch.kernels.toggle_count import kernel as TC
+from repro_torch.kernels.toggle_count.ref import (
+    popcount_u32_ref,
+    stream_toggle_count_ref,
+    toggle_count_ref,
+)
+from repro_torch.kernels.ws_matmul import kernel as WM
+from repro_torch.kernels.ws_matmul import ws_matmul
+from repro_torch.kernels.ws_matmul.ref import wrap_int32, ws_matmul_ref
+
+from _torch_reference import REFERENCE_PATH
+
+RNG = np.random.default_rng(0)
+FLOAT_REL_TOL = 1e-5
+F32_TOL = dict(rtol=1e-5, atol=1e-5)
+BF16_TOL = dict(rtol=5e-2, atol=5e-2)
+
+
+@pytest.fixture(autouse=True)
+def _few_threads():
+    """The suite runs in several worker processes at once, and some tests of
+    other files time their work against a deadline: keep the plain
+    versions' passes from taking every core."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+# ---------------------------------------------------------------------------
+# toggle_count (K5)
+# ---------------------------------------------------------------------------
+
+
+def _bits_of(x: np.ndarray, width: int) -> int:
+    """Toggles along axis 0 of ``x``, counted with Python ints."""
+    mask = (1 << width) - 1
+    return sum(
+        ((int(a) ^ int(b)) & mask).bit_count()
+        for col in np.atleast_2d(x.T)
+        for a, b in zip(col[:-1], col[1:])
+    )
+
+
+@pytest.mark.parametrize(
+    "shape", [(2, 1), (17, 3), (100, 64), (257, 129), (512, 256), (1000, 7)]
+)
+def test_toggle_count_shapes(shape):
+    s = RNG.integers(-(2**31), 2**31, size=shape, dtype=np.int64).astype(np.int32)
+    got = stream_toggle_count(s, engine="torch")
+    assert got == ref_stream_toggle_count(jnp.asarray(s), interpret=True)
+    assert got == int(stream_toggle_count_ref(torch.from_numpy(s)))
+
+
+@pytest.mark.parametrize("bits", [8, 16, 32, 37, 48, 64])
+def test_stream_activity_matches_reference(bits):
+    vals = RNG.integers(-(2 ** (bits - 1)) + 1, 2 ** (bits - 1) - 1, size=(60, 5))
+    got = stream_activity(vals, bits=bits, engine="torch")
+    assert got == ref_stream_activity(vals, bits=bits, interpret=True)
+    assert got == pytest.approx(stream_toggle_rate(vals, bits=bits), abs=1e-12)
+
+
+def test_toggle_count_i64_counts_all_64_bits():
+    vals = RNG.integers(-(2**62), 2**62, size=(40, 3))
+    got = stream_toggle_count_i64(vals, engine="torch")
+    assert got == ref_stream_toggle_count_i64(vals, interpret=True)
+    assert got == _bits_of(vals.view(np.uint64), 64)
+
+
+def test_toggle_count_1d_and_degenerate():
+    s = RNG.integers(0, 100, size=(50,), dtype=np.int32)
+    got = stream_toggle_count(s, engine="torch")
+    assert got == ref_stream_toggle_count(jnp.asarray(s), interpret=True)
+    assert got == int(stream_toggle_count_ref(torch.from_numpy(s)[:, None]))
+    assert stream_toggle_count(s[:1], engine="torch") == 0
+    assert ref_stream_toggle_count(jnp.asarray(s[:1]), interpret=True) == 0
+    assert stream_toggle_count_i64(s[:1], engine="torch") == 0
+    assert stream_activity(s[:1], 16, engine="torch") == 0.0
+
+
+def test_int64_stream_narrows_to_int32_as_the_reference():
+    """``stream_toggle_count`` reads int32 words: wider values wrap first."""
+    vals = RNG.integers(-(2**40), 2**40, size=(30, 4))
+    got = stream_toggle_count(vals, engine="torch")
+    assert got == ref_stream_toggle_count(jnp.asarray(vals.astype(np.int32)), interpret=True)
+    assert got == _bits_of(vals.astype(np.int32).view(np.uint32), 32)
+
+
+def test_toggle_oracle_pieces():
+    x = torch.tensor([0, -1, 0x7FFFFFFF, -(2**31), 5], dtype=torch.int32)
+    assert popcount_u32_ref(x).tolist() == [0, 32, 31, 1, 2]
+    cur = torch.tensor([[1, 2], [3, -1]], dtype=torch.int32)
+    nxt = torch.tensor([[0, 2], [0, 0]], dtype=torch.int32)
+    assert int(toggle_count_ref(cur, nxt)) == 1 + 0 + 2 + 32
+
+
+def test_int32_stream_on_a_wide_bus_counts_sign_copies():
+    """An int32 stream on a bus wider than 32 bits is sign-extended, so it
+    counts as its int64 copy does, without the widening copy."""
+    vals = RNG.integers(-(2**31), 2**31, size=(50, 6))
+    x32 = torch.from_numpy(vals.astype(np.int32))
+    for bits in (16, 32, 37, 64):
+        got = stream_activity(x32, bits, engine="torch")
+        assert got == stream_activity(vals, bits, engine="torch")
+        assert got == ref_stream_activity(vals, bits=bits, interpret=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_toggle_plain_windows_recompute_their_seed_rows(monkeypatch, dtype):
+    x = torch.from_numpy(RNG.integers(-(2**31), 2**31, size=(103, 9))).to(dtype)
+    whole = TC.stream_toggles_plain(x, 37)
+    monkeypatch.setattr(TC, "PLAIN_BLOCK_ELEMENTS", 20)  # two time steps a window
+    assert TC.stream_toggles_plain(x, 37).tolist() == whole.tolist()
+    assert TC.stream_toggles(x, 37).tolist() == whole.tolist()
+
+
+def test_toggle_count_contract():
+    x = torch.zeros((4, 3), dtype=torch.int32)
+    with pytest.raises(TypeError):
+        TC.stream_toggles(x.to(torch.int16))
+    with pytest.raises(ValueError):
+        TC.stream_toggles(x.t())  # not contiguous
+    with pytest.raises(ValueError):
+        TC.stream_toggles(x, 65)
+    with pytest.raises(ValueError):
+        TC.stream_toggles(x[0])
+    before = TC.stream_toggles.launches
+    assert TC.stream_toggles(x).tolist() == [0]
+    assert TC.stream_toggles.launches == before  # CPU tensors run the plain version
+    with pytest.raises(ValueError, match="unknown engine"):
+        stream_toggle_count(np.zeros((3, 2), np.int32), engine="xla")
+
+
+def test_table1_operand_streams_recount_the_reference():
+    """K5's plain version recounts the horizontal (WS, OS) and vertical (OS)
+    toggles of every Table-I layer from its operand streams: WS h =
+    n_tiles x the toggles of A down M; OS h = n_tiles x those of A^T down
+    K; OS v = m_tiles x those of W down K on the 16-bit bus.  Each must
+    equal the JAX package's count in ``table1_reference.json``, and each
+    stream's activity the reference profile's."""
+    ref = json.loads(REFERENCE_PATH.read_text())
+    rows, cols = ref["rows"], ref["cols"]
+    for i, (layer, want) in enumerate(zip(RESNET50_TABLE1, ref["layers"])):
+        a, w = conv_layer_job(layer, seed=i).operands()
+        m, k = a.shape
+        n = w.shape[1]
+        n_tiles, m_tiles = -(-n // cols), -(-m // rows)
+        assert 0 <= a.min() and a.max() < 2**15  # post-ReLU: the 32-bit count is the 16-bit one
+        ws_h = n_tiles * stream_toggle_count(a, engine="torch")
+        os_h = n_tiles * stream_toggle_count(np.ascontiguousarray(a.T), engine="torch")
+        os_v = m_tiles * stream_toggle_count_i64(w & 0xFFFF, engine="torch")
+        assert ws_h == want["WS"]["counts"][0], layer.name
+        assert (os_h, os_v) == tuple(want["OS"]["counts"][:2]), layer.name
+        assert stream_activity(a, 16, engine="torch") == want["WS"]["profile"]["a_h"]
+        assert stream_activity(w, 16, engine="torch") == want["OS"]["profile"]["a_v"]
+
+
+# ---------------------------------------------------------------------------
+# ws_matmul (K6)
+# ---------------------------------------------------------------------------
+
+
+def _bf16(x: np.ndarray) -> tuple[torch.Tensor, jnp.ndarray]:
+    """The same bfloat16 values for both packages (rounded once, by torch)."""
+    t = torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16)
+    return t, jnp.asarray(t.float().numpy(), dtype=jnp.bfloat16)
+
+
+@pytest.mark.parametrize(
+    "m,k,n",
+    [(128, 128, 128), (1, 1, 1), (200, 300, 170), (127, 129, 255), (384, 256, 512)],
+)
+@pytest.mark.parametrize("dtype", [np.int8, np.int16])
+def test_ws_matmul_int_exact(m, k, n, dtype):
+    info = np.iinfo(dtype)
+    lo, hi = max(info.min, -1000), min(info.max, 1000)
+    a = RNG.integers(lo, hi, size=(m, k)).astype(dtype)
+    w = RNG.integers(lo, hi, size=(k, n)).astype(dtype)
+    got = ws_matmul(a, w, engine="torch")
+    want = np.asarray(ref_ws_matmul(jnp.asarray(a), jnp.asarray(w), interpret=True))
+    assert got.dtype == torch.int32 and want.dtype == np.int32
+    assert np.array_equal(got.numpy(), want)
+    assert torch.equal(got, ws_matmul_ref(torch.from_numpy(a), torch.from_numpy(w)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n", [(130, 260, 140), (64, 512, 64)])
+def test_ws_matmul_float_close(dtype, m, k, n):
+    a_np, w_np = RNG.normal(size=(m, k)), RNG.normal(size=(k, n))
+    if dtype == "bfloat16":
+        (a, a_j), (w, w_j) = _bf16(a_np), _bf16(w_np)
+    else:
+        a, w = a_np.astype(np.float32), w_np.astype(np.float32)
+        a_j, w_j = jnp.asarray(a), jnp.asarray(w)
+    got = ws_matmul(a, w, engine="torch")
+    assert got.dtype == torch.float32
+    scale = np.abs(np.asarray(a_j, np.float64)) @ np.abs(np.asarray(w_j, np.float64))
+    want = ref_ws_matmul(a_j, w_j, interpret=True)
+    err = np.abs(got.numpy().astype(np.float64) - np.asarray(want, np.float64))
+    assert (err <= FLOAT_REL_TOL * scale).all(), float((err / scale).max())
+
+
+def test_ws_matmul_block_shapes():
+    """The reference gives one answer at every block shape; the port, which
+    has no block arguments, gives the same."""
+    a = RNG.integers(-50, 50, size=(100, 90)).astype(np.int8)
+    w = RNG.integers(-50, 50, size=(90, 60)).astype(np.int8)
+    got = ws_matmul(a, w, engine="torch").numpy()
+    for bm, bn, bk in [(32, 32, 32), (64, 128, 32), (128, 64, 64)]:
+        want = ref_ws_matmul(
+            jnp.asarray(a), jnp.asarray(w), block_m=bm, block_n=bn, block_k=bk, interpret=True
+        )
+        assert np.array_equal(got, np.asarray(want))
+
+
+def test_int16_accumulator_wraps_like_the_reference():
+    """Sums of 260 int16 products beyond 2^31 wrap mod 2^32 in both
+    packages, exactly as an int32 accumulator does."""
+    m, k, n = 130, 260, 129
+    a = np.full((m, k), 32767, dtype=np.int16)
+    a[::3] = -32767
+    w = RNG.choice(np.array([-32767, 32767], dtype=np.int16), size=(k, n))
+    w[:, 0] = 32767
+    exact = a.astype(np.int64) @ w.astype(np.int64)
+    assert np.abs(exact).max() > 2**31  # the case really leaves the int32 range
+    got = ws_matmul(a, w, engine="torch").numpy()
+    want = np.asarray(ref_ws_matmul(jnp.asarray(a), jnp.asarray(w), interpret=True))
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, exact.astype(np.int32))  # numpy's astype wraps mod 2^32
+    assert np.array_equal(got, wrap_int32(torch.from_numpy(exact)).numpy())
+
+
+def test_gemm_plain_version_chunks_the_reduction_exactly(monkeypatch):
+    a = torch.from_numpy(RNG.integers(-32767, 32768, size=(33, 70))).to(torch.int16)
+    w = torch.from_numpy(RNG.integers(-32767, 32768, size=(70, 19))).to(torch.int16)
+    whole = WM.ws_gemm_plain(a, w)
+    monkeypatch.setattr(WM, "EXACT_CHUNK_K", 8)
+    assert torch.equal(WM.ws_gemm_plain(a, w), whole)
+    assert torch.equal(whole, ws_matmul_ref(a, w))
+
+
+def test_ws_matmul_contract():
+    a = np.ones((4, 3), np.int16)
+    with pytest.raises(ValueError, match="bad shapes"):
+        ws_matmul(a, np.ones((4, 2), np.int16), engine="torch")
+    with pytest.raises(TypeError):
+        ws_matmul(a, np.ones((3, 2), np.int8), engine="torch")  # mixed types
+    with pytest.raises(TypeError):
+        ws_matmul(a.astype(np.int32), np.ones((3, 2), np.int32), engine="torch")
+    with pytest.raises(ValueError, match="unknown engine"):
+        ws_matmul(a, np.ones((3, 2), np.int16), engine="xla")
+    before = WM.ws_gemm.launches
+    assert ws_matmul(a, np.ones((3, 2), np.int16), engine="torch").tolist() == [[3, 3]] * 4
+    assert WM.ws_gemm.launches == before  # CPU tensors run the plain version
+
+
+# ---------------------------------------------------------------------------
+# flash_attention (K7)
+# ---------------------------------------------------------------------------
+
+
+def _qkv(b, h, kv, s, d):
+    return (
+        RNG.normal(size=(b, h, s, d)).astype(np.float32),
+        RNG.normal(size=(b, kv, s, d)).astype(np.float32),
+        RNG.normal(size=(b, kv, s, d)).astype(np.float32),
+    )
+
+
+def _reference(q, k, v, **kw):
+    return np.asarray(
+        ref_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), interpret=True, **kw)
+    )
+
+
+@pytest.mark.parametrize(
+    "b,h,kv,s,d", [(1, 1, 1, 128, 64), (2, 4, 2, 200, 64), (1, 8, 1, 256, 128)]
+)
+def test_flash_causal_gqa(b, h, kv, s, d):
+    q, k, v = _qkv(b, h, kv, s, d)
+    got = flash_attention(q, k, v, causal=True, engine="torch")
+    np.testing.assert_allclose(got.numpy(), _reference(q, k, v, causal=True), **F32_TOL)
+
+
+@pytest.mark.parametrize("window", [16, 64, 128])
+def test_flash_sliding_window(window):
+    q, k, v = _qkv(1, 2, 2, 256, 64)
+    got = flash_attention(q, k, v, causal=True, window=window, engine="torch")
+    want = _reference(q, k, v, causal=True, window=window)
+    np.testing.assert_allclose(got.numpy(), want, **F32_TOL)
+
+
+def test_flash_bf16():
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16) for x in _qkv(2, 2, 1, 128, 64))
+    got = flash_attention(q, k, v, causal=True, engine="torch")
+    assert got.dtype == torch.bfloat16
+    want = ref_flash_attention(
+        *(jnp.asarray(x.float().numpy(), dtype=jnp.bfloat16) for x in (q, k, v)),
+        causal=True,
+        interpret=True,
+    )
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **BF16_TOL)
+
+
+def test_flash_block_size_invariance():
+    """The reference gives one answer at both block shapes; the port, which
+    has no block arguments, gives the same."""
+    q, k, v = _qkv(1, 2, 2, 512, 64)
+    got = flash_attention(q, k, v, engine="torch").numpy()
+    np.testing.assert_allclose(got, _reference(q, k, v, block_q=128, block_k=128), **F32_TOL)
+    np.testing.assert_allclose(got, _reference(q, k, v, block_q=64, block_k=256), **F32_TOL)
+
+
+@pytest.mark.parametrize("window", [None, 64])
+def test_flash_noncausal(window):
+    q, k, v = _qkv(1, 2, 1, 256, 32)
+    got = flash_attention(q, k, v, causal=False, window=window, engine="torch")
+    want = _reference(q, k, v, causal=False, window=window)
+    np.testing.assert_allclose(got.numpy(), want, **F32_TOL)
+
+
+def test_flash_rows_that_see_no_key_give_zeros():
+    q, k, v = _qkv(1, 2, 2, 128, 64)
+    got = flash_attention(q, k, v, causal=True, window=0, engine="torch")
+    assert not got.any()
+    np.testing.assert_array_equal(got.numpy(), _reference(q, k, v, causal=True, window=0))
+
+
+def test_attention_oracle_matches_the_reference_oracle():
+    q, k, v = (x[0] for x in _qkv(1, 3, 3, 96, 32))
+    for kw in (dict(causal=True), dict(causal=True, window=20), dict(causal=False, sm_scale=0.3)):
+        got = attention_ref(*(torch.from_numpy(x) for x in (q, k, v)), **kw)
+        want = jax_attention_ref(*(jnp.asarray(x) for x in (q, k, v)), **kw)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+
+
+def test_attention_plain_version_chunks_the_queries(monkeypatch):
+    q, k, v = (torch.from_numpy(x) for x in _qkv(2, 4, 2, 150, 32))
+    whole = FA.flash_attention_fwd_plain(q, k, v, window=40)
+    chunked = FA.flash_attention_fwd_plain(q, k, v, window=40, query_chunk=37)
+    np.testing.assert_allclose(chunked.numpy(), whole.numpy(), **F32_TOL)
+    grouped = torch.stack(
+        [attention_ref(q[:, i], k[:, i // 2], v[:, i // 2], window=40) for i in range(4)], 1
+    )
+    np.testing.assert_allclose(whole.numpy(), grouped.numpy(), **F32_TOL)
+
+
+def test_flash_attention_contract():
+    q, k, v = _qkv(1, 4, 3, 128, 64)
+    with pytest.raises(ValueError, match="not a multiple of kv heads"):
+        flash_attention(q, k, v, engine="torch")
+    q, k, v = _qkv(1, 2, 1, 200, 64)
+    with pytest.raises(ValueError, match="block-multiple seq"):
+        flash_attention(q, k, v, causal=False, engine="torch")
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q[..., :48], k[..., :48], v[..., :48], engine="torch")
+    with pytest.raises(TypeError):
+        flash_attention(q, k.astype(np.float16), v, engine="torch")
+    before = FA.flash_attention_fwd.launches
+    flash_attention(q, k, v, engine="torch")
+    assert FA.flash_attention_fwd.launches == before  # CPU tensors run the plain version
+
+
+# ---------------------------------------------------------------------------
+# every entry point
+# ---------------------------------------------------------------------------
+
+
+def _stream():
+    return np.zeros((4, 2), np.int32)
+
+
+NO_CARD_CALLS = {
+    "stream_toggle_count": lambda: stream_toggle_count(_stream()),
+    "stream_toggle_count_i64": lambda: stream_toggle_count_i64(_stream()),
+    "stream_activity": lambda: stream_activity(_stream(), 16),
+    "ws_matmul": lambda: ws_matmul(np.ones((2, 2), np.int8), np.ones((2, 2), np.int8)),
+    "flash_attention": lambda: flash_attention(*_qkv(1, 1, 1, 8, 32)),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(NO_CARD_CALLS))
+def test_cuda_engine_raises_without_a_card(monkeypatch, entry):
+    """``engine="cuda"`` is the default and never falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(CudaUnavailableError, match="engine='torch'"):
+        NO_CARD_CALLS[entry]()
