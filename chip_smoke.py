@@ -7,7 +7,9 @@ Phases (any mismatch exits non-zero; nothing is caught):
 
 1. Print the card (``nvidia-smi`` name and power limit), build the CUDA
    kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per source, all
-   started together) and print the build time.
+   started together), print the build time and each kernel's registers and
+   spills, and check with ``cuobjdump -sass`` that the tensor-core kernels
+   hold ``HGMMA`` (bf16) and ``IGMMA`` (int8) instructions.
 2. Hold each kernel against its plain PyTorch version on the card, element
    for element: K1 and K4 on the reference test matrices and on every
    ResNet50 Table-I layer (and the numpy oracle on the small cases); K2 and
@@ -15,7 +17,13 @@ Phases (any mismatch exits non-zero; nothing is caught):
    reference's ragged WS and OS job sets, and on the Table-I WS bucket
    (3776 tasks over 720 strips) and OS stream bucket (496 strips); K5, K6
    and K7 at the shapes of the reference's ``tests/test_kernels.py``
-   (integers exact, f32 attention within 1e-5).
+   (integers exact, f32 attention within 1e-5), each K6 and K7 case through
+   ``ws_gemm`` and ``flash_attention_fwd`` on the route its type and shape
+   pick, whose counter must move: the tensor cores (kernels ``ws_gemm_tc``
+   with its prep kernel ``gemm_operand_planes``, held against its plain
+   version too, and ``flash_attention_tc``) for int8, int16 and bf16, the
+   CUDA cores (kernels ``ws_matmul`` and ``flash_attention_fwd``) for f32
+   and for bf16 GEMMs whose K or N is not a multiple of 8.
 3. The two main paths, on the paper's 32x32 array with int16 operands, WS
    and OS, each with every kernel count set to 0 just before it and read
    just after:
@@ -41,17 +49,22 @@ Phases (any mismatch exits non-zero; nothing is caught):
      its plain version (wrapped mod 2^32), and the int16 product must equal
      the wrapped sum of each tile's bottom partial sums; and one bf16
      product at Qwen3-8B's MLP width (4096 tokens x 4096 x 12288), within
-     1e-5 * (|a| @ |w|) elementwise.
+     1e-5 * (|a| @ |w|) elementwise.  Every one must take the tensor cores.
    * K7 runs Qwen3-8B prefill (H=32, KV=8, D=128, S=4096, causal) and
      Mixtral-8x7B (S=8192, window 4096) in bf16, within rtol 1.6e-2 and
-     atol 1e-3 of its plain version (f32 math, query chunks of 1024 rows).
+     atol 1e-3 of its plain version (f32 math, query chunks of 1024 rows),
+     on the tensor cores.
 4. Time each kernel at the main paths' shapes with CUDA events (warm-up,
    then the median of repeated calls) beside its plain version, its bound
-   and, where one PyTorch call computes the same function, that call.
+   and, where one PyTorch call computes the same function, that call.  The
+   CUDA-core K6 and K7, off the main path since the tensor-core routes
+   took it over, are timed in f32, their one type there, at the same
+   full-width shapes (the Qwen3-8B MLP and both attention cases).
 5. Trace each main path once more with ``torch.profiler`` and print the
    device's busy share and the device time of each kernel and copy.
 
-The last lines are the ``kernels`` JSON object, the ``nvidia-smi`` line and
+The last lines are the ``kernels`` JSON object (every kernel; the CUDA-core
+K6 and K7 with no launch on the main path), the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when no
 CUDA device is available or when the repository's ``src/`` is missing.
 """
@@ -59,6 +72,8 @@ CUDA device is available or when the repository's ``src/`` is missing.
 from __future__ import annotations
 
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -84,7 +99,10 @@ PROFILER_OWN_EVENTS = ("Activity Buffer Request",)
 KERNELS = (
     "ws_activity_toggles", "ws_task_toggles", "strip_toggles", "operand_stream_toggles",
     "stream_toggles", "ws_gemm", "flash_attention_fwd",
+    "ws_gemm_tc", "gemm_operand_planes", "flash_attention_tc",
 )
+# The tensor-core kernels and the SASS instructions each must hold.
+TC_SASS = {"ws_gemm_tc_kernel": ("HGMMA", "IGMMA"), "flash_attention_tc_kernel": ("HGMMA",)}
 # Tolerances of the float kernels against their plain versions (f32 math
 # in both; only the order of the sums differs): K6 within GEMM_REL_TOL *
 # (|a| @ |w|) elementwise, since f32 rounding grows with the magnitudes
@@ -153,6 +171,8 @@ OS_RAGGED = [
 TOGGLE_SHAPES = [(2, 1), (17, 3), (100, 64), (257, 129), (512, 256), (1000, 7)]
 GEMM_SHAPES = [(128, 128, 128), (1, 1, 1), (200, 300, 170), (127, 129, 255), (384, 256, 512)]
 FLOAT_GEMM_SHAPES = [(130, 260, 140), (64, 512, 64)]
+# bf16 shapes of the tensor-core route (K and N multiples of 8, ragged M).
+TC_GEMM_SHAPES = [(130, 264, 136), (256, 512, 384)]
 ATTENTION_SMALL = [
     # b, h, kv, s, d, causal, window
     (1, 1, 1, 128, 64, True, None),
@@ -161,6 +181,18 @@ ATTENTION_SMALL = [
     (1, 2, 2, 256, 64, True, 16),
     (1, 2, 2, 300, 32, True, 128),
     (1, 2, 1, 512, 32, False, None),
+    (1, 4, 2, 256, 128, False, 64),
+]
+# bf16 cases of the tensor-core attention: D 32/64/128, S 200 and 1000, GQA,
+# windows 70 and 0, and non-causal S=256.
+ATTENTION_BF16 = [
+    # b, h, kv, s, d, causal, window
+    (1, 8, 2, 1000, 128, True, None),
+    (1, 8, 2, 1000, 64, True, 300),
+    (1, 8, 2, 1000, 32, True, None),
+    (2, 4, 2, 200, 64, True, 70),
+    (1, 4, 1, 200, 128, True, 0),
+    (1, 4, 2, 256, 32, False, None),
     (1, 4, 2, 256, 128, False, 64),
 ]
 
@@ -228,12 +260,26 @@ def main() -> None:
     # set here so that no environment changes it).
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    wrappers = {name: getattr(K, name) for name in KERNELS[:4]}
-    wrappers.update(
-        stream_toggles=TC.stream_toggles,
-        ws_gemm=WM.ws_gemm,
-        flash_attention_fwd=FA.flash_attention_fwd,
+    # Each kernel's launch count: (the wrapper that holds it, its name).
+    # K6's and K7's routes count on the public wrapper; ``launches`` there
+    # is the sum of both GEMM (or attention) routes.
+    counters = {name: (getattr(K, name), "launches") for name in KERNELS[:4]}
+    counters.update(
+        stream_toggles=(TC.stream_toggles, "launches"),
+        ws_gemm=(WM.ws_gemm, "simt_launches"),
+        ws_gemm_tc=(WM.ws_gemm, "tc_launches"),
+        gemm_operand_planes=(WM.ws_gemm, "prep_launches"),
+        flash_attention_fwd=(FA.flash_attention_fwd, "simt_launches"),
+        flash_attention_tc=(FA.flash_attention_fwd, "tc_launches"),
     )
+
+    def reset_counts() -> None:
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+            fn.launches = 0
+
+    def read_counts() -> dict:
+        return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
 
     # -- phase 1: the card and the build ------------------------------------
     smi = subprocess.run(
@@ -246,9 +292,25 @@ def main() -> None:
     build_logs = _build.build()
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
     for name, log in build_logs.items():
+        kernel = "?"
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
-                print(f"  nvcc[{name}]: {line.strip()}")
+            found = re.search(r"Compiling entry function '(\S+)'", line)
+            if found:
+                kernel = found.group(1)
+            elif "registers" in line or "spill" in line or "error" in line.lower():
+                print(f"  nvcc[{name}] {kernel[:80]}: {line.strip()}")
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for source in ("ws_matmul", "flash_attention"):
+        sass = subprocess.run([cuobjdump, "-sass", str(_build._target(source)[1])],
+                              capture_output=True, text=True, check=True, timeout=120).stdout
+        for kernel, wanted in TC_SASS.items():
+            parts = [part for part in sass.split("Function : ")[1:] if kernel in part.split()[0]]
+            if not parts:
+                continue
+            counts = {op: sum(part.count(op) for part in parts) for op in ("HGMMA", "IGMMA")}
+            print(f"  sass[{source}] {kernel}: {counts} over {len(parts)} instantiations")
+            for op in wanted:
+                check(counts[op] > 0, f"{kernel} holds no {op} instruction")
 
     # -- phase 2: kernels vs plain versions on the card ---------------------
     max_err = {name: 0 for name in KERNELS}
@@ -304,9 +366,14 @@ def main() -> None:
         return got
 
     def check_k6(a_t, w_t, what) -> torch.Tensor:
-        """K6 vs its plain version: integers bit for bit, floats within
-        GEMM_REL_TOL * (|a| @ |w|)."""
+        """K6 on the route of its type and shape vs its plain version:
+        integers bit for bit, floats within GEMM_REL_TOL * (|a| @ |w|)."""
+        route = WM.gemm_route(a_t.dtype, *a_t.shape, w_t.shape[1])
+        name, attr = ("ws_gemm_tc", "tc_launches") if route == "tc" else ("ws_gemm", "simt_launches")
+        what = f"{what} on the {route} route"
+        before = getattr(WM.ws_gemm, attr)
         got = WM.ws_gemm(a_t, w_t)
+        check(getattr(WM.ws_gemm, attr) == before + 1, f"K6 {what}: {name} was not launched")
         plain = WM.ws_gemm_plain(a_t, w_t)
         if got.numel() == 0:
             return got
@@ -317,20 +384,30 @@ def main() -> None:
         else:
             err = (got.long() - plain.long()).abs()
             ok = torch.equal(got, plain)
-        max_err["ws_gemm"] = max(max_err["ws_gemm"], err.max().item())
+        max_err[name] = max(max_err[name], err.max().item())
         check(ok, f"K6 {what}: max |kernel - plain| {err.max().item()!r}")
         return got
 
+    def check_planes(a_t, w_t, what) -> None:
+        got = WM.gemm_operand_planes(a_t, w_t)
+        for g, p in zip(got, WM.gemm_operand_planes_plain(a_t, w_t)):
+            check(torch.equal(g, p), f"gemm_operand_planes {what}: kernel and plain version differ")
+
     def check_k7(q, k, v, causal, window, what) -> torch.Tensor:
-        """K7 vs its plain version, within F32_TOL (f32) or BF16_RTOL and
+        """K7 on the route of its type (bf16: tensor cores, f32: CUDA cores)
+        vs its plain version, within F32_TOL (f32) or BF16_RTOL and
         BF16_ATOL (bf16) of the plain output, elementwise."""
+        tc = q.dtype == torch.bfloat16
+        name, attr = ("flash_attention_tc", "tc_launches") if tc else ("flash_attention_fwd", "simt_launches")
+        before = getattr(FA.flash_attention_fwd, attr)
         got = FA.flash_attention_fwd(q, k, v, causal=causal, window=window)
+        check(getattr(FA.flash_attention_fwd, attr) == before + 1, f"K7 {what}: {name} was not launched")
         plain = FA.flash_attention_fwd_plain(q, k, v, causal=causal, window=window)
         rtol, atol = (F32_TOL, F32_TOL) if q.dtype == torch.float32 else (BF16_RTOL, BF16_ATOL)
         g, p = got.float(), plain.float()
         err = (g - p).abs()
         ok = bool(torch.isfinite(g).all()) and bool((err <= atol + rtol * p.abs()).all())
-        max_err["flash_attention_fwd"] = max(max_err["flash_attention_fwd"], err.max().item())
+        max_err[name] = max(max_err[name], err.max().item())
         check(ok, f"K7 {what}: max |kernel - plain| {err.max().item()!r} beyond rtol {rtol} "
                   f"atol {atol}")
         return got
@@ -437,11 +514,14 @@ def main() -> None:
         x64 = torch.from_numpy(rng.integers(-(2**62), 2**62, size=shape)).to(dev)
         for bits in (8, 16, 32, 37, 48, 64):
             check_k5(x64, bits, f"int64 {shape}")
+    # Integers on the tensor cores, through the planes, whose prep kernel is
+    # held against its plain version too.
     for m, k, n in GEMM_SHAPES:
         for dtype in (torch.int8, torch.int16):
             info = torch.iinfo(dtype)
             a_t = torch.from_numpy(rng.integers(info.min, info.max + 1, size=(m, k))).to(dtype).to(dev)
             w_t = torch.from_numpy(rng.integers(info.min, info.max + 1, size=(k, n))).to(dtype).to(dev)
+            check_planes(a_t, w_t, f"{dtype} {(m, k, n)}")
             check_k6(a_t, w_t, f"{dtype} {(m, k, n)}")
     sat_a = torch.full((130, 260), 32767, dtype=torch.int16)
     sat_a[::3] = -32767
@@ -450,21 +530,32 @@ def main() -> None:
     wrapped = check_k6(sat_a.to(dev), sat_w.to(dev), "saturating int16 (130, 260, 129)").cpu()
     check(exact.abs().max() > 2**31 and torch.equal(wrapped, wrap_int32(exact)),
           "K6: the saturating int16 GEMM does not wrap mod 2^32")
-    for m, k, n in FLOAT_GEMM_SHAPES:
+    # Floats: f32 and bf16 with K or N not a multiple of 8 on the CUDA
+    # cores, the other bf16 shapes on the tensor cores.
+    float_routes = {"tc": 0, "simt": 0}
+    for m, k, n in FLOAT_GEMM_SHAPES + TC_GEMM_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             a_t = torch.from_numpy(rng.normal(size=(m, k))).to(dtype).to(dev)
             w_t = torch.from_numpy(rng.normal(size=(k, n))).to(dtype).to(dev)
             check_k6(a_t, w_t, f"{dtype} {(m, k, n)}")
+            float_routes[WM.gemm_route(dtype, m, k, n)] += 1
     for b, h, kv, s_len, d, causal, window in ATTENTION_SMALL:
         q, k_, v = (torch.from_numpy(rng.normal(size=(b, heads, s_len, d))).float().to(dev)
                     for heads in (h, kv, kv))
-        check_k7(q, k_, v, causal, window, f"f32 {(b, h, kv, s_len, d)} causal={causal} "
-                                           f"window={window}")
+        check_k7(q, k_, v, causal, window, f"f32 {(b, h, kv, s_len, d)} causal={causal} window={window}")
+    for b, h, kv, s_len, d, causal, window in ATTENTION_BF16:
+        q, k_, v = (torch.from_numpy(rng.normal(size=(b, heads, s_len, d))).to(torch.bfloat16).to(dev)
+                    for heads in (h, kv, kv))
+        got = check_k7(q, k_, v, causal, window,
+                       f"bf16 {(b, h, kv, s_len, d)} causal={causal} window={window}")
+        check(window != 0 or not got.any(), "K7 bf16: a row that sees no key is not 0")
     print(f"kernel library vs plain versions: K5 on {len(TOGGLE_SHAPES) + 2} streams at 6 bus "
-          f"widths (equal), K6 on {2 * len(GEMM_SHAPES) + 1} integer GEMMs (equal, one "
-          f"wrapping) and {2 * len(FLOAT_GEMM_SHAPES)} float GEMMs (within "
-          f"{GEMM_REL_TOL} * |a| @ |w|), K7 on {len(ATTENTION_SMALL)} f32 cases (within "
-          f"{F32_TOL})", flush=True)
+          f"widths (equal), K6 on {2 * len(GEMM_SHAPES) + 1} integer GEMMs on the tensor cores "
+          f"(equal, one wrapping; the planes equal too) and float GEMMs, {float_routes['tc']} "
+          f"on the tensor cores and {float_routes['simt']} on the CUDA cores (within "
+          f"{GEMM_REL_TOL} * |a| @ |w|), K7 on {len(ATTENTION_SMALL)} f32 cases on the CUDA cores "
+          f"(within {F32_TOL}) and {len(ATTENTION_BF16)} bf16 cases on the tensor cores (within "
+          f"rtol {BF16_RTOL}, atol {BF16_ATOL})", flush=True)
 
     # -- phase 3: the main paths ---------------------------------------------
     ref = json.loads((ROOT / "src" / "repro_torch" / "data" / "table1_reference.json").read_text())
@@ -528,8 +619,7 @@ def main() -> None:
     for path, expected in (("per-GEMM", ("ws_activity_toggles", "operand_stream_toggles")),
                            ("batched", ("ws_task_toggles", "strip_toggles"))):
         clear_profile_cache()
-        for fn in wrappers.values():
-            fn.launches = 0
+        reset_counts()
         for dataflow in ("WS", "OS"):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -548,7 +638,7 @@ def main() -> None:
                 check(stats.serial_fallbacks == stats.degraded == stats.skipped == 0
                       and not stats.failure_report,
                       f"batched {dataflow}: fallbacks or failures {stats.as_dict()}")
-        counts = {name: fn.launches for name, fn in wrappers.items()}
+        counts = read_counts()
         print(f"{path} path: WS {main_ms[path, 'WS']:.1f} ms, OS {main_ms[path, 'OS']:.1f} ms; "
               f"launches {counts}", flush=True)
         for name in expected:
@@ -618,8 +708,13 @@ def main() -> None:
             # K6 at int16 and int8
             a16, w16 = a_t.to(torch.int16), w_t.to(torch.int16)
             a8_t, w8_t = (torch.from_numpy(x.astype(np.int8)).to(dev) for x in (a8, w8))
+            tc_before = WM.ws_gemm.tc_launches
             prod16 = ws_matmul(a16, w16)
+            check(not checked or WM.ws_gemm.tc_launches == tc_before + 1,
+                  f"K6 {name} int16 did not take the tensor cores")
             prod8 = ws_matmul(a8_t, w8_t)
+            check(not checked or WM.ws_gemm.tc_launches == tc_before + 2,
+                  f"K6 {name} int8 did not take the tensor cores")
             # K5 on the WS vertical bus: the (M, K*N) partial-sum stream
             sums = partial_sums(a_t, w_t)
             if checked:
@@ -646,26 +741,32 @@ def main() -> None:
                 check(torch.equal(got, plain), f"K6 {name} int{bits}: kernel and plain version differ")
             print(f"  library {name}: K5 recount WS {counts['WS']} OS {counts['OS']} equal the "
                   f"reference; K6 {m}x{k}x{n} int16 and int8 equal the plain version")
+        tc_before = WM.ws_gemm.tc_launches
         mlp_y = ws_matmul(mlp_x, mlp_w)
+        check(not checked or WM.ws_gemm.tc_launches == tc_before + 1,
+              "K6 bf16 MLP did not take the tensor cores")
         if checked:
             plain = WM.ws_gemm_plain(mlp_x, mlp_w)
             err = (mlp_y - plain).abs()
             bound = GEMM_REL_TOL * (mlp_x.float().abs() @ mlp_w.float().abs())
             check(bool(torch.isfinite(mlp_y).all()) and bool((err <= bound).all()),
                   f"K6 bf16 MLP: |kernel - plain| beyond {GEMM_REL_TOL} * |a| @ |w|")
-            max_err["ws_gemm"] = max(max_err["ws_gemm"], err.max().item())
+            max_err["ws_gemm_tc"] = max(max_err["ws_gemm_tc"], err.max().item())
             print(f"  library Qwen3-8B MLP bf16 {tuple(mlp_x.shape)} @ {tuple(mlp_w.shape)}: "
                   f"max |kernel - plain| {err.max().item()!r}, within {GEMM_REL_TOL} * |a| @ |w|")
             del plain, err, bound
         del mlp_y
         for case, s_len, window, q, k_, v in attn_inputs:
+            tc_before = FA.flash_attention_fwd.tc_launches
             out = flash_attention(q, k_, v, causal=True, window=window)
+            check(not checked or FA.flash_attention_fwd.tc_launches == tc_before + 1,
+                  f"K7 {case} did not take the tensor cores")
             if checked:
                 plain = FA.flash_attention_fwd_plain(q, k_, v, causal=True, window=window).float()
                 err = (out.float() - plain).abs()
                 ok = (bool(torch.isfinite(out).all())
                       and bool((err <= BF16_ATOL + BF16_RTOL * plain.abs()).all()))
-                max_err["flash_attention_fwd"] = max(max_err["flash_attention_fwd"], err.max().item())
+                max_err["flash_attention_tc"] = max(max_err["flash_attention_tc"], err.max().item())
                 check(ok, f"K7 {case}: max |kernel - plain| {err.max().item()!r} beyond rtol "
                           f"{BF16_RTOL} atol {BF16_ATOL}")
                 print(f"  library {case} bf16 H={HEADS} KV={KV_HEADS} S={s_len} D={HEAD_DIM} "
@@ -673,18 +774,20 @@ def main() -> None:
                       f"{BF16_RTOL}, atol {BF16_ATOL})")
                 del plain, err
 
-    library_kernels = ("stream_toggles", "ws_gemm", "flash_attention_fwd")
-    for fn in wrappers.values():
-        fn.launches = 0
+    library_kernels = ("stream_toggles", "ws_gemm_tc", "gemm_operand_planes", "flash_attention_tc")
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     library_path(checked=True)
     torch.cuda.synchronize()
     checked_ms = (time.perf_counter() - t0) * 1e3
-    counts = {name: fn.launches for name, fn in wrappers.items()}
+    counts = read_counts()
     print(f"kernel-library path (with its checks): {checked_ms:.1f} ms; launches {counts}", flush=True)
     for name in library_kernels:
         check(counts[name] > 0, f"{name} was not launched on the kernel-library path")
+    for name in ("ws_gemm", "flash_attention_fwd"):
+        check(counts[name] == 0, f"{name} (the CUDA cores) ran on the kernel-library path")
+    for name in library_kernels + ("ws_gemm", "flash_attention_fwd"):
         launches[name] = counts[name]
 
     # -- phase 4: times at the main paths' shapes ----------------------------
@@ -714,7 +817,7 @@ def main() -> None:
         name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": {}, "library_ms": None}
         for name in KERNELS
     }
-    gemm_parts: dict[str, dict] = {}
+    parts: dict[str, dict[str, dict]] = {}
 
     def add(name, ms, plain, bound, by, library=None, part=None):
         t = totals[name]
@@ -725,8 +828,8 @@ def main() -> None:
         if library is not None:
             t["library_ms"] = (t["library_ms"] or 0.0) + library
         if part is not None:
-            q = gemm_parts.setdefault(part, {"calls": 0, "ms": 0.0, "plain_ms": 0.0,
-                                             "bound_ms": 0.0, "library_ms": None})
+            q = parts.setdefault(name, {}).setdefault(
+                part, {"calls": 0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": None})
             q["calls"] += 1
             q["ms"] += ms
             q["plain_ms"] += plain
@@ -807,28 +910,52 @@ def main() -> None:
               f"plain {layer_plain:.4f} ms, bound {layer_bound:.5f} ms (bytes)")
         del sums, stream
         # K6 at int16 (no PyTorch CUDA int16 GEMM) and int8 (torch._int_mm)
-        for x_np, y_np, dtype, rate, part in ((a, w, torch.int16, PEAK_OPS_PER_S, "int16"),
-                                              (a8, w8, torch.int8, PEAK_INT8_OPS, "int8")):
+        # on the tensor cores: the whole call (planes, zeroed output, GEMM)
+        # and its prep kernel alone.  The bound counts the int8 products the
+        # tensor cores run (four for int16).
+        for x_np, y_np, dtype, part in ((a, w, torch.int16, "int16"), (a8, w8, torch.int8, "int8")):
             x = torch.from_numpy(x_np).to(dtype).to(dev)
             y = torch.from_numpy(y_np).to(dtype).to(dev)
-            ms = median_ms(lambda: WM.ws_gemm(x, y), calls=20)
+            tc = median_ms(lambda: WM.ws_gemm(x, y), calls=20)
+            prep = median_ms(lambda: WM.gemm_operand_planes(x, y), calls=20)
             plain = median_ms(lambda: WM.ws_gemm_plain(x, y), calls=5, bursts=3)
+            prep_plain = median_ms(lambda: WM.gemm_operand_planes_plain(x, y), calls=5, bursts=3)
             library = median_ms(lambda: torch._int_mm(x, y), calls=20) if part == "int8" else None
             size = x.element_size()
-            bound, by = bound_ms(size * (m * k + k * n) + 4 * m * n, 2 * m * k * n, rate)
-            add("ws_gemm", ms, plain, bound, by, library, part)
+            n_bytes = size * (m * k + k * n) + 4 * m * n
+            bound_tc, by_tc = bound_ms(n_bytes, 2 * size * size * m * k * n, PEAK_INT8_OPS)
+            kp = -(-k // WM.PLANE_K) * WM.PLANE_K
+            bound_prep, by_prep = bound_ms(size * (m * k + k * n) + size * (m + n) * kp, 0)
+            add("ws_gemm_tc", tc, plain, bound_tc, by_tc, library, part)
+            add("gemm_operand_planes", prep, prep_plain, bound_prep, by_prep, None, part)
             lib_text = f"torch._int_mm {library:.4f} ms" if library is not None else "no library call"
-            print(f"  K6 {name} {part} {m}x{k}x{n}: {ms:.4f} ms, plain {plain:.4f} ms, {lib_text}, "
-                  f"bound {bound:.5f} ms ({by})")
+            print(f"  K6 {name} {part} {m}x{k}x{n}: tensor cores {tc:.4f} ms (prep {prep:.4f} ms, "
+                  f"plain {prep_plain:.4f} ms, bound {bound_prep:.6f} ms), plain {plain:.4f} ms, "
+                  f"{lib_text}, bound {bound_tc:.5f} ms ({by_tc})")
+    # K6 at the Qwen3-8B MLP width: bf16 on the tensor cores, and f32 (its
+    # one type on the main path's shapes) on the CUDA cores at the f32
+    # CUDA-core rate; each beside torch.matmul on the same inputs (bf16 out
+    # for bf16, full f32 for f32).
     m, k = mlp_x.shape
     n = mlp_w.shape[1]
-    ms = median_ms(lambda: WM.ws_gemm(mlp_x, mlp_w), calls=3, bursts=3)
+    tc = median_ms(lambda: WM.ws_gemm(mlp_x, mlp_w), calls=10, bursts=3)
     plain = median_ms(lambda: WM.ws_gemm_plain(mlp_x, mlp_w), calls=3, bursts=3)
     library = median_ms(lambda: torch.matmul(mlp_x, mlp_w), calls=10, bursts=3)
     bound, by = bound_ms(2 * (m * k + k * n) + 4 * m * n, 2 * m * k * n, PEAK_BF16_FLOPS)
-    add("ws_gemm", ms, plain, bound, by, library, "bf16")
-    print(f"  K6 Qwen3-8B MLP bf16 {m}x{k}x{n}: {ms:.4f} ms, plain (f32) {plain:.4f} ms, "
-          f"torch.matmul (bf16 out) {library:.4f} ms, bound {bound:.5f} ms ({by})")
+    add("ws_gemm_tc", tc, plain, bound, by, library, "bf16")
+    print(f"  K6 Qwen3-8B MLP bf16 {m}x{k}x{n}: tensor cores {tc:.4f} ms "
+          f"({2 * m * k * n / tc / 1e9:.1f} TFLOP/s), plain (f32) {plain:.4f} ms, torch.matmul "
+          f"(bf16 out) {library:.4f} ms, bound {bound:.5f} ms ({by})")
+    mlp_x32, mlp_w32 = mlp_x.float(), mlp_w.float()
+    simt = median_ms(lambda: WM.ws_gemm(mlp_x32, mlp_w32), calls=3, bursts=3)
+    plain = median_ms(lambda: WM.ws_gemm_plain(mlp_x32, mlp_w32), calls=3, bursts=3)
+    library = median_ms(lambda: torch.matmul(mlp_x32, mlp_w32), calls=3, bursts=3)
+    bound, by = bound_ms(4 * (m * k + k * n + m * n), 2 * m * k * n, PEAK_OPS_PER_S)
+    add("ws_gemm", simt, plain, bound, by, library, "f32")
+    print(f"  K6 Qwen3-8B MLP f32 {m}x{k}x{n}: CUDA cores {simt:.4f} ms "
+          f"({2 * m * k * n / simt / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, torch.matmul "
+          f"{library:.4f} ms, bound {bound:.5f} ms ({by})")
+    del mlp_x32, mlp_w32
     # K7: 4 * D operations per visible (query, key) pair; the library call
     # is scaled_dot_product_attention on K and V repeated to the query heads
     # (outside the timing), with is_causal or a boolean window mask.
@@ -847,18 +974,32 @@ def main() -> None:
 
             def sdpa():
                 return torch.nn.functional.scaled_dot_product_attention(q, k_rep, v_rep, attn_mask=keep)
-        ms = median_ms(lambda: FA.flash_attention_fwd(q, k_, v, causal=True, window=window),
-                       calls=3, bursts=3)
+        tc = median_ms(lambda: FA.flash_attention_fwd(q, k_, v, causal=True, window=window),
+                       calls=10, bursts=3)
         plain = median_ms(lambda: FA.flash_attention_fwd_plain(q, k_, v, causal=True, window=window),
                           calls=1, bursts=3)
         library = median_ms(sdpa, calls=5, bursts=3)
         n_bytes = sum(x.numel() * x.element_size() for x in (q, k_, v, q))
-        bound, by = bound_ms(n_bytes, 4 * HEAD_DIM * HEADS * visible, PEAK_BF16_FLOPS)
-        add("flash_attention_fwd", ms, plain, bound, by, library)
+        flops = 4 * HEAD_DIM * HEADS * visible
+        bound, by = bound_ms(n_bytes, flops, PEAK_BF16_FLOPS)
+        add("flash_attention_tc", tc, plain, bound, by, library, case)
         print(f"  K7 {case} bf16 S={s_len} window={window} ({visible} visible pairs per head): "
-              f"{ms:.4f} ms, plain {plain:.4f} ms, scaled_dot_product_attention {library:.4f} ms, "
-              f"bound {bound:.5f} ms ({by})")
-        del k_rep, v_rep
+              f"tensor cores {tc:.4f} ms ({flops / tc / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, "
+              f"scaled_dot_product_attention {library:.4f} ms, bound {bound:.5f} ms ({by})")
+        # The same case in f32 on the CUDA cores, against the f32 CUDA-core
+        # rate and SDPA on the f32 inputs.
+        q, k_, v, k_rep, v_rep = (x.float() for x in (q, k_, v, k_rep, v_rep))
+        simt = median_ms(lambda: FA.flash_attention_fwd(q, k_, v, causal=True, window=window),
+                         calls=3, bursts=3)
+        plain = median_ms(lambda: FA.flash_attention_fwd_plain(q, k_, v, causal=True, window=window),
+                          calls=1, bursts=3)
+        library = median_ms(sdpa, calls=3, bursts=3)
+        bound, by = bound_ms(2 * n_bytes, flops, PEAK_OPS_PER_S)
+        add("flash_attention_fwd", simt, plain, bound, by, library, case + " f32")
+        print(f"  K7 {case} f32: CUDA cores {simt:.4f} ms ({flops / simt / 1e9:.1f} TFLOP/s), "
+              f"plain {plain:.4f} ms, scaled_dot_product_attention {library:.4f} ms, bound "
+              f"{bound:.5f} ms ({by})")
+        del q, k_, v, k_rep, v_rep
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     library_path(checked=False)
@@ -930,6 +1071,18 @@ def main() -> None:
             "src/repro_torch/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/kernel.py:112",
         ),
+        "ws_gemm_tc": (
+            "src/repro_torch/csrc/ws_matmul.cu",
+            "src/repro/kernels/ws_matmul/kernel.py:55",
+        ),
+        "gemm_operand_planes": (
+            "src/repro_torch/csrc/ws_matmul.cu",
+            "src/repro/kernels/ws_matmul/kernel.py:55",
+        ),
+        "flash_attention_tc": (
+            "src/repro_torch/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:112",
+        ),
     }
     kernels = []
     for name, t in totals.items():
@@ -948,10 +1101,15 @@ def main() -> None:
             # None for the toggle counters: no PyTorch call counts bus toggles
             "library_ms": t["library_ms"],
         }
-        if name == "ws_gemm":
+        if name == "ws_gemm_tc":
             row["library_covers"] = ("int8 (torch._int_mm) and bf16 (torch.matmul) calls; "
                                      "PyTorch has no CUDA int16 GEMM")
-            row["parts"] = gemm_parts
+        if name in ("ws_gemm", "flash_attention_fwd"):
+            # the CUDA cores: f32 (and bf16 GEMMs with K or N not a multiple
+            # of 8) only, timed in f32 at the main path's shapes
+            row["main_path"] = False
+        if name in parts:
+            row["parts"] = parts[name]
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -2,9 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 into ``build/repro_torch/<name>-<digest>.so`` at the root of the checkout
-(the digest is of the source, so an edited source builds anew), then loaded
-with ``ctypes``.  No PyTorch header is included, which keeps a build to
-seconds.  Nothing is built when this module is imported: ``load`` builds at
+(the digest is of the source, every ``csrc/*.cuh`` header and the flags,
+so an edited source or header builds anew), then loaded with ``ctypes``.
+No PyTorch header is included, which keeps a build to seconds.  Nothing is built when this module is imported: ``load`` builds at
 first use, and ``build`` starts one ``nvcc`` per source, all at once.
 A failed build raises with the compiler's output.
 """
@@ -53,13 +53,18 @@ SOURCES: dict[str, dict[str, tuple[list, type]]] = {
         "stream_toggles": ([_P, _P, _L, _L, _I, _U64, _P], _I),
     },
     "ws_matmul": {
-        # a, w, out, m, k, n, dtype, stream
+        # a, w, out, m, k, n, dtype (2 bf16, 3 f32), stream
         "ws_matmul": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
+        # a, w, planes, out, m, k, n, dtype, stream
+        "ws_gemm_tc": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+        # a, w, a_planes, w_planes, m, k, n, kp, dtype, stream
+        "gemm_operand_planes": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     },
     "flash_attention": {
-        # q, k, v, o, batch, heads, kv_heads, s_len, head_dim, dtype, causal,
-        # window, scale, stream
-        "flash_attention_fwd": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P], _I),
+        # q, k, v, o, batch, heads, kv_heads, s_len, head_dim, causal, window,
+        # scale, stream (f32 on the CUDA cores; bf16 on the tensor cores)
+        "flash_attention_fwd": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P], _I),
+        "flash_attention_tc": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P], _I),
     },
 }
 
@@ -80,8 +85,11 @@ def _nvcc() -> str:
 
 def _target(name: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return src, BUILD_DIR / f"{name}-{digest}.so"
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return src, BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names=None) -> dict[str, str]:

@@ -1,16 +1,27 @@
-"""K7: fused attention forward and its plain version.
+"""K7: fused attention forward, its routes and its plain version.
 
-``flash_attention_fwd`` (``csrc/flash_attention.cu``) replaces
-``flash_attention_pallas`` (``src/repro/kernels/flash_attention/kernel.py``):
-causal and sliding-window softmax attention with an online softmax in f32,
-over (B, H, S, D) queries and (B, KV, S, D) keys and values, query head h
-reading KV head h // (H // KV).  The note at the top of the source says what
-bounds it on the card and what its design does about that.  For CPU
-tensors the wrapper runs the plain PyTorch version beside it; for CUDA
-tensors it launches the kernel, adds one to ``flash_attention_fwd.launches``,
-and raises if the launch is refused.  The plain version also runs on CUDA
-tensors when called directly, which is how the kernel is checked on the
-card.
+K7 replaces ``flash_attention_pallas``
+(``src/repro/kernels/flash_attention/kernel.py``): causal and sliding-window
+softmax attention with an online softmax in f32, over (B, H, S, D) queries
+and (B, KV, S, D) keys and values, query head h reading KV head
+h // (H // KV).  ``flash_attention_fwd`` takes one of two routes, fixed by
+the type alone, never by a failure:
+
+* bf16: the tensor cores (the kernel ``flash_attention_tc``, wgmma fed by
+  TMA).  The TPU kernel multiplied the softmax weights P in f32; wgmma
+  takes them in bf16, so the kernel carries P as two bf16 terms, hi + lo
+  (one rounding alone would leave the bf16 tolerance on rows that see few
+  keys).
+* f32: the CUDA cores (the kernel ``flash_attention_fwd``); a tensor-core
+  f32 route would be TF32, which the f32 tolerance does not admit.
+
+The note at the top of ``csrc/flash_attention.cu`` says what bounds each
+kernel and what its design does about that.  For CPU tensors
+``flash_attention_fwd`` runs the plain PyTorch version beside it; for CUDA
+tensors it launches the kernel of its route, adds one to
+``flash_attention_fwd.tc_launches`` or ``.simt_launches`` and to
+``.launches`` (both routes), and raises if the launch is refused.  The plain version also runs on CUDA tensors when called
+directly, which is how the kernels are checked on the card.
 """
 
 from __future__ import annotations
@@ -20,7 +31,7 @@ import torch
 from repro_torch.kernels._engine import launch, on_cpu
 
 __all__ = [
-    "DTYPE_CODES",
+    "DTYPES",
     "HEAD_DIMS",
     "PLAIN_QUERY_CHUNK",
     "flash_attention_fwd",
@@ -28,8 +39,8 @@ __all__ = [
 ]
 
 HEAD_DIMS = (32, 64, 128)
-# Operand types the kernel takes, by the code its C entry point reads.
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# Operand types the kernels take.
+DTYPES = (torch.float32, torch.bfloat16)
 # Query rows per dense step of the plain version.
 PLAIN_QUERY_CHUNK = 1024
 
@@ -47,7 +58,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"q heads {h} not a multiple of kv heads {k.shape[1]}")
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not supported; the kernel takes {HEAD_DIMS}")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in DTYPE_CODES:
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in DTYPES:
         raise TypeError(f"q, k and v must share float32 or bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must lie on one device")
@@ -100,6 +111,37 @@ def flash_attention_fwd_plain(
     return out
 
 
+def _launch_args(q, k, window, sm_scale):
+    b, h, s, d = q.shape
+    if b * h > 65535:
+        raise ValueError("batch * heads must be at most 65535")
+    win = _INT32_MAX if window is None else max(-_INT32_MAX, min(int(window), _INT32_MAX))
+    return b, h, k.shape[1], s, d, win, float(_scale(d, sm_scale))
+
+
+def _launch(q, k, v, causal, window, sm_scale) -> torch.Tensor:
+    """Launch the kernel of the inputs' route (bf16: tensor cores, f32:
+    CUDA cores) on checked CUDA inputs."""
+    out = torch.empty_like(q)
+    if q.shape[0] == 0 or q.shape[2] == 0:
+        return out
+    b, h, kv, s, d, win, scale = _launch_args(q, k, window, sm_scale)
+    tc = q.dtype == torch.bfloat16
+    if tc:
+        q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v))  # TMA alignment
+    launch(
+        "flash_attention", "flash_attention_tc" if tc else "flash_attention_fwd", q.device,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, kv, s, d,
+        int(causal), win, scale,
+    )
+    if tc:
+        flash_attention_fwd.tc_launches += 1
+    else:
+        flash_attention_fwd.simt_launches += 1
+    flash_attention_fwd.launches += 1
+    return out
+
+
 def flash_attention_fwd(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -112,6 +154,7 @@ def flash_attention_fwd(
     """K7: softmax attention of contiguous (B, H, S, D) queries over
     (B, KV, S, D) keys and values, all float32 or all bfloat16, D in
     ``HEAD_DIMS``; the result is (B, H, S, D) in q's dtype on q's device.
+    bfloat16 runs on the tensor cores, float32 on the CUDA cores.
 
     ``causal`` hides keys after the query; ``window`` hides keys with
     q - k >= window; ``sm_scale`` defaults to D ** -0.5.  A query row that
@@ -120,20 +163,9 @@ def flash_attention_fwd(
     _check(q, k, v)
     if on_cpu(q, "flash_attention_fwd"):
         return flash_attention_fwd_plain(q, k, v, causal=causal, window=window, sm_scale=sm_scale)
-    b, h, s, d = q.shape
-    out = torch.empty_like(q)
-    if b == 0 or s == 0:
-        return out
-    if b * h > 65535:
-        raise ValueError("batch * heads must be at most 65535")
-    win = _INT32_MAX if window is None else max(-_INT32_MAX, min(int(window), _INT32_MAX))
-    launch(
-        "flash_attention", "flash_attention_fwd", q.device,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, k.shape[1], s, d,
-        DTYPE_CODES[q.dtype], int(causal), win, float(_scale(d, sm_scale)),
-    )
-    flash_attention_fwd.launches += 1
-    return out
+    return _launch(q, k, v, causal, window, sm_scale)
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.tc_launches = 0
+flash_attention_fwd.simt_launches = 0

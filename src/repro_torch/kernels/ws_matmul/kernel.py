@@ -1,15 +1,30 @@
-"""K6: the weight-stationary tiled GEMM and its plain version.
+"""K6: the weight-stationary GEMM, its routes and its plain versions.
 
-``ws_gemm`` (``csrc/ws_matmul.cu``) replaces ``ws_matmul_pallas``
-(``src/repro/kernels/ws_matmul/kernel.py``): ``a @ w`` with K innermost and
-a wide accumulator, int8/int16 -> int32 (wrapping mod 2^32, as the TPU's
-int32 accumulator does) and bf16/f32 -> f32.  The note at the top of the
-source says what bounds it on the card and what its design does about
-that.  For CPU tensors the wrapper runs the plain PyTorch version beside
-it; for CUDA tensors it launches the kernel, adds one to
-``ws_gemm.launches``, and raises if the launch is refused.  The plain
-version also runs on CUDA tensors when called directly, which is how the
-kernel is checked on the card.
+K6 replaces ``ws_matmul_pallas`` (``src/repro/kernels/ws_matmul/kernel.py``):
+``a @ w`` with K innermost and a wide accumulator, int8/int16 -> int32
+(wrapping mod 2^32, as the TPU's int32 accumulator does) and bf16/f32 ->
+f32.  ``ws_gemm`` takes one of two routes, fixed by type and shape alone
+(``gemm_route``), never by a failure:
+
+* ``"tc"``, the tensor cores (the kernel ``ws_gemm_tc``, wgmma fed by
+  TMA): int8 and int16 always, after the prep kernel
+  ``gemm_operand_planes`` has written their planes (K zero-padded to a
+  multiple of 32, w transposed; int16 as hi/lo int8 planes whose four
+  products recombine exactly mod 2^32); bf16 when its rows are 16-byte
+  multiples (K % 8 == 0 and N % 8 == 0), as TMA requires.
+* ``"simt"``, the CUDA cores (the kernel ``ws_matmul``): f32 (a
+  tensor-core f32 product would be TF32, which the f32 tolerance does not
+  admit) and bf16 with other strides.
+
+The note at the top of ``csrc/ws_matmul.cu`` says what bounds each kernel
+and what its design does about that.  For CPU tensors ``ws_gemm`` and
+``gemm_operand_planes`` run the plain PyTorch version beside them; for
+CUDA tensors they launch their kernel, add one to its count on
+``ws_gemm`` (``tc_launches``, ``simt_launches`` or ``prep_launches``;
+``launches`` counts both GEMM routes), and raise if the launch is
+refused.  The plain versions also run
+on CUDA tensors when called directly, which is how the kernels are checked
+on the card.
 """
 
 from __future__ import annotations
@@ -19,10 +34,25 @@ import torch
 from repro_torch.kernels._engine import launch, on_cpu
 from repro_torch.kernels.ws_matmul.ref import wrap_int32
 
-__all__ = ["DTYPE_CODES", "EXACT_CHUNK_K", "ws_gemm", "ws_gemm_plain"]
+__all__ = [
+    "DTYPE_CODES",
+    "EXACT_CHUNK_K",
+    "PLANE_K",
+    "gemm_operand_planes",
+    "gemm_operand_planes_plain",
+    "gemm_route",
+    "ws_gemm",
+    "ws_gemm_plain",
+]
 
-# Operand types the kernel takes, by the code its C entry point reads.
+# Operand types the kernel takes, by the code its C entry point reads, and
+# the result type of each.
 DTYPE_CODES = {torch.int8: 0, torch.int16: 1, torch.bfloat16: 2, torch.float32: 3}
+_OUT_DTYPE = {torch.int8: torch.int32, torch.int16: torch.int32,
+              torch.bfloat16: torch.float32, torch.float32: torch.float32}
+
+# The operand planes pad K to a multiple of this (the int8 wgmma's depth).
+PLANE_K = 32
 
 # Reduction rows per float64 product in the plain integer version: int16
 # products are below 2^30 in magnitude, so a chunk's sums stay below 2^52
@@ -65,25 +95,124 @@ def ws_gemm_plain(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return wrap_int32(out)
 
 
-def ws_gemm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """K6: ``a @ w`` for contiguous (M, K) and (K, N) tensors of one type,
-    int8/int16 -> int32 (wrapped mod 2^32) or bf16/f32 -> f32, on ``a``'s
-    device."""
+def gemm_route(dtype: torch.dtype, m: int, k: int, n: int) -> str:
+    """The kernel a CUDA ``ws_gemm`` of (m, k) @ (k, n) operands of
+    ``dtype`` launches: ``"tc"`` (tensor cores) for int8 and int16, and for
+    bf16 whose rows are 16-byte multiples (K % 8 == 0 and N % 8 == 0, as TMA
+    requires); ``"simt"`` (CUDA cores) for f32 and other bf16."""
+    if dtype not in DTYPE_CODES:
+        raise TypeError(f"no GEMM route for {dtype}")
+    if dtype in (torch.int8, torch.int16):
+        return "tc"
+    if dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0:
+        return "tc"
+    return "simt"
+
+
+def _plane_count(dtype: torch.dtype) -> int:
+    return 1 if dtype == torch.int8 else 2
+
+
+def gemm_operand_planes_plain(a: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the prep kernel, on any device: int8 planes
+    (P, M, Kp) of ``a`` and (P, N, Kp) of ``w`` transposed, K zero-padded to
+    Kp, a multiple of ``PLANE_K``.  int8 operands give one plane (the
+    values); int16 give two, hi = x >> 8 (read as s8) and lo = x & 0xFF
+    (its bits stored in int8, read as u8), so x = hi * 2^8 + lo."""
+    k = a.shape[1]
+    kp = -(-k // PLANE_K) * PLANE_K
+    out = []
+    for x in (a, w.t()):
+        x = torch.nn.functional.pad(x, (0, kp - k))
+        if x.dtype == torch.int8:
+            out.append(x.unsqueeze(0).contiguous())
+        else:
+            x = x.to(torch.int32)
+            lo = (x & 0xFF) - ((x & 0x80) << 1)  # the low byte's bits as an int8
+            out.append(torch.stack([x >> 8, lo]).to(torch.int8))
+    return out[0], out[1]
+
+
+def gemm_operand_planes(a: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The int8 planes of int8 or int16 operands (see the plain version)."""
     _check(a, w)
-    if on_cpu(a, "ws_gemm"):
-        return ws_gemm_plain(a, w)
+    if a.dtype not in (torch.int8, torch.int16):
+        raise TypeError(f"operand planes are for int8 and int16, not {a.dtype}")
+    if on_cpu(a, "gemm_operand_planes"):
+        return gemm_operand_planes_plain(a, w)
     m, k = a.shape
     n = w.shape[1]
-    out_dtype = torch.float32 if a.dtype.is_floating_point else torch.int32
-    if m == 0 or n == 0 or k == 0:
-        return torch.zeros((m, n), dtype=out_dtype, device=a.device)
-    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    kp = -(-k // PLANE_K) * PLANE_K
+    p = _plane_count(a.dtype)
+    a_planes = torch.empty((p, m, kp), dtype=torch.int8, device=a.device)
+    w_planes = torch.empty((p, n, kp), dtype=torch.int8, device=a.device)
+    if k and (m or n):
+        launch(
+            "ws_matmul", "gemm_operand_planes", a.device,
+            a.data_ptr(), w.data_ptr(), a_planes.data_ptr(), w_planes.data_ptr(),
+            m, k, n, kp, DTYPE_CODES[a.dtype],
+        )
+        ws_gemm.prep_launches += 1
+    return a_planes, w_planes
+
+
+def _tc(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Launch the tensor-core kernel on checked CUDA operands of its route
+    (for int8/int16 the one call also runs the prep kernel into scratch
+    planes and zeroes the output)."""
+    m, k = a.shape
+    n = w.shape[1]
+    out = torch.empty((m, n), dtype=_OUT_DTYPE[a.dtype], device=a.device)
+    if out.numel() == 0 or k == 0:
+        return out.zero_()
+    planes = None
+    if a.dtype == torch.bfloat16:
+        # TMA needs 16-byte aligned data (a view with an offset may not be)
+        a, w = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (a, w))
+    else:
+        # scratch for the prep kernel; freed on return, it is reused only by
+        # work queued after the GEMM on this stream (the caching allocator)
+        kp = -(-k // PLANE_K) * PLANE_K
+        planes = torch.empty(_plane_count(a.dtype) * (m + n) * kp, dtype=torch.int8, device=a.device)
     launch(
-        "ws_matmul", "ws_matmul", a.device,
-        a.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n, DTYPE_CODES[a.dtype],
+        "ws_matmul", "ws_gemm_tc", a.device,
+        a.data_ptr(), w.data_ptr(), 0 if planes is None else planes.data_ptr(), out.data_ptr(),
+        m, k, n, DTYPE_CODES[a.dtype],
     )
+    if planes is not None:
+        ws_gemm.prep_launches += 1
+    ws_gemm.tc_launches += 1
     ws_gemm.launches += 1
     return out
 
 
+def _simt(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA-core kernel on checked CUDA operands of its route."""
+    m, k = a.shape
+    n = w.shape[1]
+    out = torch.empty((m, n), dtype=_OUT_DTYPE[a.dtype], device=a.device)
+    if out.numel() == 0 or k == 0:
+        return out.zero_()
+    launch(
+        "ws_matmul", "ws_matmul", a.device,
+        a.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n, DTYPE_CODES[a.dtype],
+    )
+    ws_gemm.simt_launches += 1
+    ws_gemm.launches += 1
+    return out
+
+
+def ws_gemm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """K6: ``a @ w`` for contiguous (M, K) and (K, N) tensors of one type,
+    int8/int16 -> int32 (wrapped mod 2^32) or bf16/f32 -> f32, on ``a``'s
+    device, by the kernel ``gemm_route`` names."""
+    _check(a, w)
+    if on_cpu(a, "ws_gemm"):
+        return ws_gemm_plain(a, w)
+    return _tc(a, w) if gemm_route(a.dtype, *a.shape, w.shape[1]) == "tc" else _simt(a, w)
+
+
 ws_gemm.launches = 0
+ws_gemm.tc_launches = 0
+ws_gemm.simt_launches = 0
+ws_gemm.prep_launches = 0

@@ -221,6 +221,13 @@ def test_toggle_count_entry_points_on_the_card(card):
     assert stream_toggle_count(vals[:1]) == 0
 
 
+COUNTERS = {"tc": "tc_launches", "simt": "simt_launches"}
+
+
+def _counts(fn, names=("launches", "tc_launches", "simt_launches", "prep_launches")):
+    return {name: getattr(fn, name) for name in names if hasattr(fn, name)}
+
+
 @pytest.mark.parametrize(
     "m,k,n", [(1, 1, 1), (127, 129, 255), (200, 300, 170), (128, 128, 128), (3136, 256, 64)]
 )
@@ -230,12 +237,27 @@ def test_ws_gemm_int_matches_plain(card, m, k, n, dtype):
     info = torch.iinfo(dtype)
     a = torch.from_numpy(rng.integers(info.min, info.max + 1, size=(m, k))).to(dtype).to(card)
     w = torch.from_numpy(rng.integers(info.min, info.max + 1, size=(k, n))).to(dtype).to(card)
-    before = WM.ws_gemm.launches
-    got = ws_matmul(a, w)
+    before = _counts(WM.ws_gemm)
+    got = WM.ws_gemm(a, w)
     torch.cuda.synchronize()
-    assert WM.ws_gemm.launches == before + 1
+    after = _counts(WM.ws_gemm)
+    assert after["launches"] == before["launches"] + 1
+    assert after["tc_launches"] == before["tc_launches"] + 1  # integers take the tensor cores
+    assert after["prep_launches"] == before["prep_launches"] + 1
     assert got.dtype == torch.int32
     assert torch.equal(got, WM.ws_gemm_plain(a, w))
+
+
+@pytest.mark.parametrize("m,k,n", [(37, 70, 45), (1, 1, 1), (0, 70, 45), (5, 33, 0)])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int16])
+def test_operand_planes_match_plain(card, dtype, m, k, n):
+    rng = np.random.default_rng(7)
+    info = torch.iinfo(dtype)
+    a = torch.from_numpy(rng.integers(info.min, info.max + 1, size=(m, k))).to(dtype).to(card)
+    w = torch.from_numpy(rng.integers(info.min, info.max + 1, size=(k, n))).to(dtype).to(card)
+    got = WM.gemm_operand_planes(a, w)
+    for g, p in zip(got, WM.gemm_operand_planes_plain(a, w)):
+        assert torch.equal(g, p)
 
 
 def test_ws_gemm_wraps_mod_2_32(card):
@@ -245,21 +267,64 @@ def test_ws_gemm_wraps_mod_2_32(card):
     w[:, ::2] = -32767
     exact = a.long() @ w.long()
     assert exact.abs().max() > 2**31
-    got = ws_matmul(a.to(card), w.to(card)).cpu()
+    before = WM.ws_gemm.tc_launches
+    got = WM.ws_gemm(a.to(card), w.to(card)).cpu()
+    assert WM.ws_gemm.tc_launches == before + 1
     assert torch.equal(got, wrap_int32(exact))
 
 
-@pytest.mark.parametrize("m,k,n", [(130, 260, 140), (64, 512, 64), (1, 3, 300)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_ws_gemm_float_matches_plain(card, m, k, n, dtype):
+@pytest.mark.parametrize(
+    "route,dtype,m,k,n",
+    [
+        ("simt", torch.float32, 130, 260, 140),
+        ("simt", torch.float32, 64, 512, 64),
+        ("simt", torch.float32, 1, 3, 300),
+        ("simt", torch.bfloat16, 130, 260, 140),  # K, N not multiples of 8: the CUDA cores
+        ("simt", torch.bfloat16, 64, 500, 64),  # K % 8 != 0
+        ("simt", torch.bfloat16, 1, 3, 300),
+        ("tc", torch.bfloat16, 64, 512, 64),
+        ("tc", torch.bfloat16, 130, 264, 136),  # ragged M, N not a tile multiple
+        ("tc", torch.bfloat16, 256, 512, 384),
+        ("tc", torch.bfloat16, 1, 8, 8),
+    ],
+)
+def test_ws_gemm_float_matches_plain(card, route, dtype, m, k, n):
     gen = torch.Generator().manual_seed(m * k + n)
     a = torch.randn(m, k, generator=gen).to(dtype).to(card)
     w = torch.randn(k, n, generator=gen).to(dtype).to(card)
-    got = ws_matmul(a, w)
+    assert WM.gemm_route(dtype, m, k, n) == route
+    before = getattr(WM.ws_gemm, COUNTERS[route])
+    got = WM.ws_gemm(a, w)
+    torch.cuda.synchronize()
+    assert getattr(WM.ws_gemm, COUNTERS[route]) == before + 1
     plain = WM.ws_gemm_plain(a, w)
     scale = a.float().abs() @ w.float().abs()
     assert got.dtype == torch.float32
     assert ((got - plain).abs() <= 1e-5 * scale).all()
+
+
+@pytest.mark.parametrize(
+    "dtype,k,n,route",
+    [
+        (torch.int8, 129, 7, "tc"),
+        (torch.int16, 64, 64, "tc"),
+        (torch.bfloat16, 64, 64, "tc"),
+        (torch.bfloat16, 60, 64, "simt"),
+        (torch.bfloat16, 64, 60, "simt"),
+        (torch.float32, 64, 64, "simt"),
+    ],
+)
+def test_ws_matmul_takes_the_route_of_its_type_and_shape(card, dtype, k, n, route):
+    a = torch.ones((33, k), dtype=dtype, device=card)
+    w = torch.ones((k, n), dtype=dtype, device=card)
+    assert WM.gemm_route(dtype, 33, k, n) == route
+    before = _counts(WM.ws_gemm)
+    got = ws_matmul(a, w)
+    torch.cuda.synchronize()
+    after = _counts(WM.ws_gemm)
+    assert after[COUNTERS[route]] == before[COUNTERS[route]] + 1
+    assert after["launches"] == before["launches"] + 1
+    assert bool((got == k).all())
 
 
 @pytest.mark.parametrize("d", [32, 64, 128])
@@ -279,23 +344,51 @@ def test_flash_attention_f32_matches_plain(card, d, b, h, kv, s, causal, window)
     q = torch.randn(b, h, s, d, generator=gen).to(card)
     k = torch.randn(b, kv, s, d, generator=gen).to(card)
     v = torch.randn(b, kv, s, d, generator=gen).to(card)
-    before = FA.flash_attention_fwd.launches
+    before = _counts(FA.flash_attention_fwd)
     got = flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert FA.flash_attention_fwd.launches == before + 1
+    after = _counts(FA.flash_attention_fwd)
+    assert after["launches"] == before["launches"] + 1
+    assert after["simt_launches"] == before["simt_launches"] + 1
     plain = FA.flash_attention_fwd_plain(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("d", [64, 128])
-def test_flash_attention_bf16_matches_plain(card, d):
-    gen = torch.Generator().manual_seed(d)
+@pytest.mark.parametrize(
+    "d,s,causal,window",
+    [
+        (64, 1000, True, None),
+        (64, 1000, True, 300),
+        (128, 1000, True, None),
+        (128, 1000, True, 300),
+        (32, 1000, True, None),
+        (32, 200, True, 70),
+        (128, 200, True, 0),  # every row sees no key
+        (64, 256, False, None),
+        (128, 256, False, 64),
+    ],
+)
+def test_flash_attention_bf16_matches_plain(card, d, s, causal, window):
+    gen = torch.Generator().manual_seed(d + s)
     q, k, v = (
-        torch.randn(1, heads, 1000, d, generator=gen).to(torch.bfloat16).to(card)
+        torch.randn(1, heads, s, d, generator=gen).to(torch.bfloat16).to(card)
         for heads in (8, 2, 2)
     )
-    for window in (None, 300):
-        got = flash_attention(q, k, v, window=window)
-        plain = FA.flash_attention_fwd_plain(q, k, v, window=window)
-        assert got.dtype == torch.bfloat16
-        torch.testing.assert_close(got.float(), plain.float(), rtol=1.6e-2, atol=1e-3)
+    before = FA.flash_attention_fwd.tc_launches
+    got = FA.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert FA.flash_attention_fwd.tc_launches == before + 1
+    plain = FA.flash_attention_fwd_plain(q, k, v, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), plain.float(), rtol=1.6e-2, atol=1e-3)
+    if window == 0:
+        assert not got.any()
+
+
+def test_flash_attention_bf16_takes_the_tensor_cores(card):
+    q, k, v = (torch.ones(1, heads, 64, 64, dtype=torch.bfloat16, device=card) for heads in (4, 2, 2))
+    before = _counts(FA.flash_attention_fwd)
+    flash_attention(q, k, v)
+    after = _counts(FA.flash_attention_fwd)
+    assert after["tc_launches"] == before["tc_launches"] + 1
+    assert after["simt_launches"] == before["simt_launches"]

@@ -306,6 +306,105 @@ def test_ws_matmul_contract():
     assert WM.ws_gemm.launches == before  # CPU tensors run the plain version
 
 
+def test_operand_planes_recover_every_int16_value():
+    """hi * 2^8 + lo (hi read as s8, lo as u8) gives back each of the 65536
+    int16 values; the int8 plane is the values; K pads with zeros to a
+    multiple of PLANE_K and w is transposed."""
+    values = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16).reshape(256, 256)
+    a_planes, w_planes = WM.gemm_operand_planes(values, values.t().contiguous())
+    assert a_planes.shape == w_planes.shape == (2, 256, 256) and a_planes.dtype == torch.int8
+    for planes in (a_planes, w_planes):
+        hi, lo = planes[0].long(), planes[1].view(torch.uint8).long()
+        assert torch.equal(hi * 256 + lo, values.long())
+    a = torch.from_numpy(RNG.integers(-128, 128, size=(5, 33))).to(torch.int8)
+    w = torch.from_numpy(RNG.integers(-128, 128, size=(33, 3))).to(torch.int8)
+    a_planes, w_planes = WM.gemm_operand_planes_plain(a, w)
+    assert a_planes.shape == (1, 5, 64) and w_planes.shape == (1, 3, 64)
+    assert torch.equal(a_planes[0, :, :33], a) and not a_planes[0, :, 33:].any()
+    assert torch.equal(w_planes[0, :, :33], w.t()) and not w_planes[0, :, 33:].any()
+
+
+def _planes_product(a, w, k_splits=1):
+    """The tensor-core route's integer arithmetic on the plain planes: per
+    split of K, hh, then D * 2^8 + hl + lh, then D * 2^8 + ll, each step
+    wrapped to int32; the splits' sums added and wrapped."""
+    a_planes, w_planes = (x.long() for x in WM.gemm_operand_planes_plain(a, w))
+    if a.dtype == torch.int16:  # the lo plane is read as u8
+        a_planes[1] &= 0xFF
+        w_planes[1] &= 0xFF
+    kp = a_planes.shape[2]
+    total = torch.zeros((a.shape[0], w.shape[1]), dtype=torch.int64)
+    for ks in torch.arange(kp).chunk(k_splits):
+        ah, al = a_planes[0][:, ks], a_planes[-1][:, ks]
+        wh, wl = w_planes[0][:, ks], w_planes[-1][:, ks]
+        if a.dtype == torch.int8:
+            d = wrap_int32(ah @ wh.t()).long()
+        else:
+            d = wrap_int32(ah @ wh.t()).long()
+            d = wrap_int32(d * 256 + ah @ wl.t() + al @ wh.t()).long()
+            d = wrap_int32(d * 256 + al @ wl.t()).long()
+        total = wrap_int32(total + d).long()
+    return total.to(torch.int32)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (127, 129, 255), (200, 300, 170), (33, 70, 19)])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int16])
+@pytest.mark.parametrize("k_splits", [1, 3])
+def test_planes_recombine_to_the_plain_product(m, k, n, dtype, k_splits):
+    info = torch.iinfo(dtype)
+    a = torch.from_numpy(RNG.integers(info.min, info.max + 1, size=(m, k))).to(dtype)
+    w = torch.from_numpy(RNG.integers(info.min, info.max + 1, size=(k, n))).to(dtype)
+    assert torch.equal(_planes_product(a, w, k_splits), WM.ws_gemm_plain(a, w))
+
+
+@pytest.mark.parametrize("k_splits", [1, 4])
+def test_planes_recombine_through_the_wrap(k_splits):
+    a = torch.full((130, 260), 32767, dtype=torch.int16)
+    a[::3] = -32767
+    w = torch.from_numpy(RNG.choice([-32767, 32767], size=(260, 129))).to(torch.int16)
+    exact = a.long() @ w.long()
+    assert exact.abs().max() > 2**31
+    got = _planes_product(a, w, k_splits)
+    assert torch.equal(got, wrap_int32(exact)) and torch.equal(got, WM.ws_gemm_plain(a, w))
+
+
+@pytest.mark.parametrize(
+    "dtype,k,n,route",
+    [
+        (torch.int8, 129, 7, "tc"),
+        (torch.int8, 1, 1, "tc"),
+        (torch.int16, 300, 170, "tc"),
+        (torch.bfloat16, 64, 64, "tc"),
+        (torch.bfloat16, 8, 8, "tc"),
+        (torch.bfloat16, 260, 140, "simt"),
+        (torch.bfloat16, 264, 130, "simt"),
+        (torch.float32, 64, 64, "simt"),
+        (torch.float32, 3, 300, "simt"),
+    ],
+)
+def test_gemm_route_by_type_and_strides(dtype, k, n, route):
+    assert WM.gemm_route(dtype, 33, k, n) == route
+    assert WM.gemm_route(dtype, 1, k, n) == route  # M never decides
+
+
+def test_gemm_routes_on_cpu_tensors_run_the_plain_version():
+    a = torch.from_numpy(RNG.integers(-300, 300, size=(9, 16))).to(torch.int16)
+    w = torch.from_numpy(RNG.integers(-300, 300, size=(16, 8))).to(torch.int16)
+    before = {attr: getattr(WM.ws_gemm, attr)
+              for attr in ("launches", "tc_launches", "simt_launches", "prep_launches")}
+    for x, y in ((a, w), (a.float(), w.float()), (a.bfloat16(), w.bfloat16())):
+        assert WM.gemm_route(x.dtype, 9, 16, 8) == ("simt" if x.dtype == torch.float32 else "tc")
+        assert torch.equal(WM.ws_gemm(x, y), WM.ws_gemm_plain(x, y))
+    assert torch.equal(WM.ws_gemm(a, w), ws_matmul_ref(a, w))
+    planes = WM.gemm_operand_planes(a, w)
+    assert all(torch.equal(x, y) for x, y in zip(planes, WM.gemm_operand_planes_plain(a, w)))
+    assert all(getattr(WM.ws_gemm, attr) == n for attr, n in before.items())
+    with pytest.raises(TypeError):
+        WM.gemm_route(torch.int32, 1, 1, 1)
+    with pytest.raises(TypeError, match="int8 and int16"):
+        WM.gemm_operand_planes(a.float(), w.float())
+
+
 # ---------------------------------------------------------------------------
 # flash_attention (K7)
 # ---------------------------------------------------------------------------
@@ -411,6 +510,67 @@ def test_flash_attention_contract():
     before = FA.flash_attention_fwd.launches
     flash_attention(q, k, v, engine="torch")
     assert FA.flash_attention_fwd.launches == before  # CPU tensors run the plain version
+
+
+def _tensor_core_rendering(q, k, v, *, window=None, split=True, tile=128):
+    """The tensor-core kernel's arithmetic in plain PyTorch: causal online
+    softmax over key tiles of ``tile`` in the log2 domain, the unnormalised
+    weights P rounded to bf16 (``split``: as hi + lo, two bf16 terms)
+    before P V, f32 sums, the result rounded to bf16."""
+    b, h, s, d = q.shape
+    rep = h // k.shape[1]
+    qf = q.float()
+    kf, vf = (x.float().repeat_interleave(rep, 1) for x in (k, v))
+    c = d ** -0.5 * 1.4426950408889634
+    rows = torch.arange(s)[:, None]
+    m = torch.full((b, h, s, 1), -1.0e30)
+    l = torch.zeros((b, h, s, 1))
+    o = torch.zeros((b, h, s, d))
+    for k0 in range(0, s, tile):
+        keys = torch.arange(k0, min(k0 + tile, s))[None]
+        x = (qf @ kf[:, :, k0 : k0 + tile].transpose(-1, -2)) * c
+        hidden = keys > rows
+        if window is not None:
+            hidden |= rows - keys >= window
+        x = x.masked_fill(hidden, float("-inf"))
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(x - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        hi = p.to(torch.bfloat16).float()
+        p_mma = hi + (p - hi).to(torch.bfloat16).float() if split else hi
+        o = o * alpha + p_mma @ vf[:, :, k0 : k0 + tile]
+        m = m_new
+    return (o / torch.where(l == 0, 1.0, l)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("d,window", [(128, None), (64, 300), (32, None)])
+def test_tensor_core_attention_error_budget(d, window):
+    """At S=1000, H=8, KV=2 the tensor-core design (P as hi + lo bf16)
+    stays within the card's bf16 tolerance (rtol 1.6e-2, atol 1e-3) of the
+    plain version; one bf16 rounding of P would not, on rows that see few
+    keys, which is why the kernel carries the second term."""
+    gen = torch.Generator().manual_seed(d)
+    q, k, v = (torch.randn(1, heads, 1000, d, generator=gen).to(torch.bfloat16) for heads in (8, 2, 2))
+    plain = FA.flash_attention_fwd_plain(q, k, v, window=window).float()
+
+    def beyond(got):
+        return int(((got.float() - plain).abs() > 1e-3 + 1.6e-2 * plain.abs()).sum())
+
+    assert beyond(_tensor_core_rendering(q, k, v, window=window)) == 0
+    assert beyond(_tensor_core_rendering(q, k, v, window=window, split=False)) > 0
+
+
+def test_attention_routes_on_cpu_tensors_run_the_plain_version():
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16) for x in _qkv(1, 4, 2, 70, 32))
+    before = {attr: getattr(FA.flash_attention_fwd, attr)
+              for attr in ("launches", "tc_launches", "simt_launches")}
+    want = FA.flash_attention_fwd_plain(q, k, v, window=20)
+    assert torch.equal(FA.flash_attention_fwd(q, k, v, window=20), want)
+    q, k, v = (x.float() for x in (q, k, v))
+    assert torch.equal(FA.flash_attention_fwd(q, k, v, window=20),
+                       FA.flash_attention_fwd_plain(q, k, v, window=20))
+    assert all(getattr(FA.flash_attention_fwd, attr) == n for attr, n in before.items())
 
 
 # ---------------------------------------------------------------------------
