@@ -5,19 +5,25 @@
 
 Phases (any mismatch exits non-zero; nothing is caught):
 
-1. Print the card (``nvidia-smi`` name and power limit), build the CUDA
-   kernels from ``src/repro_torch/csrc`` (one ``nvcc`` per source, all
-   started together), print the build time and each kernel's registers and
-   spills, and check with ``cuobjdump -sass`` that the tensor-core kernels
-   hold ``HGMMA`` (bf16) and ``IGMMA`` (int8) instructions.
+1. Print the card (``nvidia-smi`` name and power limit) and its integer
+   rates (SM count and maximum SM clock), build the CUDA kernels from
+   ``src/repro_torch/csrc`` (one ``nvcc`` per source, all started
+   together), print the build time and each kernel's registers and spills,
+   and check with ``cuobjdump -sass`` that the tensor-core kernels hold
+   ``HGMMA`` (bf16) and ``IGMMA`` (int8) instructions; print the ``POPC``,
+   ``SHFL``, 128-bit ``LDG`` and ``REDUX`` counts of K1 and K5 (neither may
+   hold a shuffle, and K5 must hold 16-byte loads).
 2. Hold each kernel against its plain PyTorch version on the card, element
    for element: K1 and K4 on the reference test matrices and on every
-   ResNet50 Table-I layer (and the numpy oracle on the small cases); K2 and
+   ResNet50 Table-I layer (and the numpy oracle on the small cases), K1
+   also on its edge cases at the int16 extremes; K2 and
    K3 on the stacked buckets the port's scheduler builds for the
    reference's ragged WS and OS job sets, and on the Table-I WS bucket
    (3776 tasks over 720 strips) and OS stream bucket (496 strips); K5, K6
    and K7 at the shapes of the reference's ``tests/test_kernels.py``
-   (integers exact, f32 attention within 1e-5), each K6 and K7 case through
+   (integers exact, f32 attention within 1e-5), K5 also on misaligned
+   bases, T = 2 and 3, 600,000 lanes and an int32 stream on every bus of
+   33-64 bits, each K6 and K7 case through
    ``ws_gemm`` and ``flash_attention_fwd`` on the route its type and shape
    pick, whose counter must move: the tensor cores (kernels ``ws_gemm_tc``
    with its prep kernel ``gemm_operand_planes``, held against its plain
@@ -57,6 +63,10 @@ Phases (any mismatch exits non-zero; nothing is caught):
 4. Time each kernel at the main paths' shapes with CUDA events (warm-up,
    then the median of repeated calls) beside its plain version, its bound
    and, where one PyTorch call computes the same function, that call.  The
+   toggle counters' bound is the largest of their bytes, their 32-bit
+   integer ops and their popcounts at this card's rates, and names the
+   binding term; K5 is summed apart over its 12 partial-sum streams and its
+   36 operand streams, and timed once more on K4's inputs beside K4.  The
    CUDA-core K6 and K7, off the main path since the tensor-core routes
    took it over, are timed in f32, their one type there, at the same
    full-width shapes (the Qwen3-8B MLP and both attention cases).
@@ -83,17 +93,19 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 REL_TOL = 1e-12
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at the 700 W
-# limit): HBM bytes/s; the float32 CUDA-core rate, used as the rate of
-# 32-bit lane operations (an integer multiply-add counts 2, like a fused
-# multiply-add); and the tensor-core rates for bf16 and int8.
+# limit): HBM bytes/s; the float32 CUDA-core rate (the CUDA-core K6 and
+# K7); and the tensor-core rates for bf16 and int8.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
-# Operations per element: WS partial sum = multiply-add (2) + XOR + AND +
-# popcount; a bus value = XOR + AND + popcount.
-OPS_PER_PARTIAL_SUM = 5
-OPS_PER_BUS_VALUE = 3
+# Results per clock on each SM of compute capability 9.0 (NVIDIA's CUDA C++
+# table of arithmetic-instruction throughput): 32-bit
+# integer add, logic op or multiply-add; popcount. The toggle counters
+# (K1-K5) are bound by the larger of their bytes, their integer ops and
+# their popcounts, at the SM count and maximum SM clock this card reports.
+INT_OPS_PER_CLOCK_SM = 64
+POPC_PER_CLOCK_SM = 16
 # Device-side events the profiler records for itself.
 PROFILER_OWN_EVENTS = ("Activity Buffer Request",)
 KERNELS = (
@@ -103,6 +115,13 @@ KERNELS = (
 )
 # The tensor-core kernels and the SASS instructions each must hold.
 TC_SASS = {"ws_gemm_tc_kernel": ("HGMMA", "IGMMA"), "flash_attention_tc_kernel": ("HGMMA",)}
+# The redesigned toggle counters (source, kernel): their SASS is counted for
+# popcounts, shuffles (none: registers blocked in time, REDUX sums) and
+# 16-byte global loads (K5's lane groups).
+INT_SASS = (("activity_profile", "ws_activity_toggles_kernel"),
+            ("toggle_count", "stream_toggles_kernel"))
+SASS_OPS = {"POPC": r"\bPOPC\b", "SHFL": r"\bSHFL\.", "LDG.E.128": r"\bLDG\.E(?:\.\w+)*\.128\b",
+            "REDUX": r"\bREDUX\b"}
 # Tolerances of the float kernels against their plain versions (f32 math
 # in both; only the order of the sums differs): K6 within GEMM_REL_TOL *
 # (|a| @ |w|) elementwise, since f32 rounding grows with the magnitudes
@@ -124,6 +143,7 @@ ATTENTION_CASES = (
 )
 MLP_TOKENS = 4096
 WS_BUS_BITS = 37  # the WS partial-sum bus of the 32x32 array at int16
+OPERAND_BUS = 16  # its operand bus
 BATCH_STATS_FIELDS = (
     "jobs", "passes", "pass_reuse", "buckets", "tasks", "strips", "serial_fallbacks",
 )
@@ -149,6 +169,35 @@ OS_CASES = [
     (257, 40, 33, 16, 16, 37, 33),
     (12, 1025, 16, 8, 8, 16, 12),
 ]
+# K1 at its edges (tests/test_torch_cuda.py K1_EDGE_CASES): M around one
+# run of 15 transitions, K below rows and past one staged chunk, N off the
+# 32-column groups, b_v on every high-word packing; operands at the int16
+# extremes.
+K1_EDGE_CASES = [
+    (2, 40, 33, 32, 32, 16, 37),
+    (14, 40, 33, 32, 32, 16, 37),
+    (15, 40, 33, 32, 32, 16, 37),
+    (16, 40, 33, 32, 32, 16, 37),
+    (1025, 40, 33, 32, 32, 16, 37),
+    (40, 20, 65, 32, 32, 16, 37),
+    (40, 70, 100, 32, 16, 16, 37),
+    (40, 100, 29, 48, 8, 16, 37),
+    (40, 64, 64, 32, 32, 16, 20),
+    (40, 64, 64, 32, 32, 16, 32),
+    (40, 64, 64, 32, 32, 33, 33),
+    (40, 64, 64, 32, 32, 16, 40),
+    (40, 64, 64, 32, 32, 16, 45),
+    (40, 64, 64, 32, 32, 64, 64),
+]
+# K5 at its edges: (shape, element offset into the allocation); an offset
+# misaligns the base (lanes 1, 3, 5, 4097 walk one lane a thread, 4096 takes
+# the scalar head, the 16-byte groups and the tail), T = 2 and 3, and lanes
+# beyond the earlier design's grid stride.
+K5_EDGE_CASES = [
+    ((37, 1), 1), ((37, 3), 1), ((37, 5), 1), ((37, 4096), 1), ((37, 4097), 1),
+    ((2, 1000), 0), ((3, 4096), 0), ((3, 7), 0), ((4, 600_000), 0),
+]
+
 # The reference's ragged batches: tests/test_profile_pipeline.py RAGGED /
 # OS_RAGGED.
 RAGGED = [
@@ -288,6 +337,15 @@ def main() -> None:
     ).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
     print(f"card: {smi} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}", flush=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.split()[0])
+    int_ops_per_s = INT_OPS_PER_CLOCK_SM * sms * clock_mhz * 1e6
+    popc_per_s = POPC_PER_CLOCK_SM * sms * clock_mhz * 1e6
+    print(f"integer rates: {sms} SMs at {clock_mhz:.0f} MHz (max SM clock): "
+          f"{int_ops_per_s / 1e12:.3f} T 32-bit integer ops/s, {popc_per_s / 1e12:.3f} T popcounts/s")
     t0 = time.perf_counter()
     build_logs = _build.build()
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
@@ -311,6 +369,17 @@ def main() -> None:
             print(f"  sass[{source}] {kernel}: {counts} over {len(parts)} instantiations")
             for op in wanted:
                 check(counts[op] > 0, f"{kernel} holds no {op} instruction")
+    for source, kernel in INT_SASS:
+        sass = subprocess.run([cuobjdump, "-sass", str(_build._target(source)[1])],
+                              capture_output=True, text=True, check=True, timeout=120).stdout
+        parts = [part for part in sass.split("Function : ")[1:] if kernel in part.split()[0]]
+        check(bool(parts), f"{kernel} not found in the SASS of {source}")
+        for part in parts:
+            counts = {op: len(re.findall(pattern, part)) for op, pattern in SASS_OPS.items()}
+            print(f"  sass[{source}] {part.split()[0][:90]}: {counts}")
+            check(counts["SHFL"] == 0, f"{kernel} holds shuffles")
+            if kernel == "stream_toggles_kernel":
+                check(counts["LDG.E.128"] > 0, f"{kernel} holds no 16-byte global load")
 
     # -- phase 2: kernels vs plain versions on the card ---------------------
     max_err = {name: 0 for name in KERNELS}
@@ -452,6 +521,12 @@ def main() -> None:
     w = np.full((32, 8), 32767, dtype=np.int64)
     w[:, ::2] = -32767
     check_k1(a, w, 32, 8, 16, 37, "37-bit extremes", small_case=True)
+    extremes = np.array([-32768, -32767, 32767])
+    for case in K1_EDGE_CASES:
+        m, k, n, rows, cols, b_h, b_v = case
+        a, w = (np.where(rng.random(shape) < 0.5, rng.choice(extremes, shape),
+                         rng.integers(-32768, 32768, size=shape)) for shape in ((m, k), (k, n)))
+        check_k1(a, w, rows, cols, b_h, b_v, f"edge case {case}", small_case=True)
     for case in OS_CASES:
         m, k, n, rows, cols, b_h, b_v = case
         a = rng.integers(-32767, 32768, size=(m, k))
@@ -499,7 +574,8 @@ def main() -> None:
     print(f"Table-I buckets: WS {ws_arrays[2].shape[0]} tasks over strips "
           f"{tuple(ws_arrays[0].shape)} and tiles {tuple(ws_arrays[1].shape)}; "
           f"OS strips {tuple(os_strips.shape)}")
-    print(f"kernels vs plain versions: equal on {len(CASES) + 1 + len(RESNET50_TABLE1)} WS and "
+    print(f"kernels vs plain versions: equal on "
+          f"{len(CASES) + 1 + len(K1_EDGE_CASES) + len(RESNET50_TABLE1)} WS and "
           f"{2 * (len(OS_CASES) + len(RESNET50_TABLE1))} OS per-GEMM inputs, "
           f"{len(ws_buckets) + 1} WS buckets and {len(os_buckets) + 1} OS stream buckets",
           flush=True)
@@ -514,6 +590,15 @@ def main() -> None:
         x64 = torch.from_numpy(rng.integers(-(2**62), 2**62, size=shape)).to(dev)
         for bits in (8, 16, 32, 37, 48, 64):
             check_k5(x64, bits, f"int64 {shape}")
+    for (t_len, lanes), offset in K5_EDGE_CASES:
+        for dtype, hi in ((torch.int32, 2**31), (torch.int64, 2**62)):
+            flat = torch.from_numpy(rng.integers(-hi, hi, size=t_len * lanes + offset)).to(dtype)
+            x_t = flat.to(dev)[offset:].view(t_len, lanes)
+            for bits in (16, 37, 64):
+                check_k5(x_t, bits, f"{dtype} {(t_len, lanes)} offset {offset}")
+    x32 = on_card(rng.integers(-(2**31), 2**31, size=(300, 129)))
+    for bits in range(33, 65):
+        check_k5(x32, bits, "int32 (300, 129) on a wide bus")
     # Integers on the tensor cores, through the planes, whose prep kernel is
     # held against its plain version too.
     for m, k, n in GEMM_SHAPES:
@@ -550,7 +635,8 @@ def main() -> None:
                        f"bf16 {(b, h, kv, s_len, d)} causal={causal} window={window}")
         check(window != 0 or not got.any(), "K7 bf16: a row that sees no key is not 0")
     print(f"kernel library vs plain versions: K5 on {len(TOGGLE_SHAPES) + 2} streams at 6 bus "
-          f"widths (equal), K6 on {2 * len(GEMM_SHAPES) + 1} integer GEMMs on the tensor cores "
+          f"widths, {2 * len(K5_EDGE_CASES)} edge streams at 3 and one int32 stream at 32 "
+          f"(equal), K6 on {2 * len(GEMM_SHAPES) + 1} integer GEMMs on the tensor cores "
           f"(equal, one wrapping; the planes equal too) and float GEMMs, {float_routes['tc']} "
           f"on the tensor cores and {float_routes['simt']} on the CUDA cores (within "
           f"{GEMM_REL_TOL} * |a| @ |w|), K7 on {len(ATTENTION_SMALL)} f32 cases on the CUDA cores "
@@ -813,6 +899,24 @@ def main() -> None:
         t_ops = n_ops / ops_per_s * 1e3
         return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
+    def toggle_bound_ms(n_bytes: int, sums: int, values: int, bits: int,
+                        h_values: int = 0, h_bits: int = 0) -> tuple[float, str]:
+        """The toggle counters' bound: the largest of bytes / 3.35 TB/s,
+        32-bit integer ops / the integer rate and popcounts / the popcount
+        rate.  ``values`` transitions on a ``bits``-wide bus cost one logic
+        op per 32-bit word and bits / 32 popcounts each; ``sums`` partial
+        sums one multiply-add each; ``h_values`` transitions on an
+        ``h_bits``-wide bus as ``values``.  Returns (ms, binding term)."""
+        words = -(-bits // 32)
+        h_words = -(-h_bits // 32)
+        terms = {
+            "bytes": n_bytes / PEAK_BYTES_PER_S,
+            "integer ops": (sums + values * words + h_values * h_words) / int_ops_per_s,
+            "popcounts": (values * bits + h_values * h_bits) / 32 / popc_per_s,
+        }
+        term = max(terms, key=terms.get)
+        return terms[term] * 1e3, term
+
     totals = {
         name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": {}, "library_ms": None}
         for name in KERNELS
@@ -837,26 +941,41 @@ def main() -> None:
             if library is not None:
                 q["library_ms"] = (q["library_ms"] or 0.0) + library
 
-    print("times (ms per call; bound = max(bytes / 3.35 TB/s, ops / 67 Tops/s)):")
+    print(f"times (ms per call). Toggle counters K1-K5: bound = max(bytes / 3.35 TB/s, 32-bit "
+          f"integer ops / ({INT_OPS_PER_CLOCK_SM} x {sms} SMs x {clock_mhz:.0f} MHz), popcounts / "
+          f"({POPC_PER_CLOCK_SM} x {sms} SMs x {clock_mhz:.0f} MHz)); a WS partial sum is one "
+          f"multiply-add, one logic op per 32-bit word of its bus and bits / 32 popcounts, a bus "
+          f"value the last two:")
+    k5_at_k4 = {"K4 ms": 0.0, "K5 ms": 0.0, "calls": 0}
     for name, a, w in operands:
         m, k = a.shape
         n = w.shape[1]
         a_t, w_t = on_card(a), on_card(w)
-        ms = median_ms(lambda: K.ws_activity_toggles(a_t, w_t, 32, 32, 16, 37), calls=20)
-        plain = median_ms(lambda: K.ws_activity_toggles_plain(a_t, w_t, 32, 32, 16, 37), calls=2, bursts=3)
-        ops = OPS_PER_PARTIAL_SUM * m * k * n + OPS_PER_BUS_VALUE * m * k * -(-n // 32)
-        bound, by = bound_ms(4 * (m * k + k * n) + 16, ops)
+        ms = median_ms(lambda: K.ws_activity_toggles(a_t, w_t, 32, 32, 16, WS_BUS_BITS), calls=20)
+        plain = median_ms(lambda: K.ws_activity_toggles_plain(a_t, w_t, 32, 32, 16, WS_BUS_BITS),
+                          calls=2, bursts=3)
+        bound, by = toggle_bound_ms(4 * (m * k + k * n) + 16, m * k * n, (m - 1) * k * n, WS_BUS_BITS,
+                                    (m - 1) * k, OPERAND_BUS)
         add("ws_activity_toggles", ms, plain, bound, by)
-        print(f"  K1 {name} {m}x{k}x{n}: {ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.5f} ms ({by})")
+        print(f"  K1 {name} {m}x{k}x{n}: {ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.5f} ms "
+              f"({by}; {100 * bound / ms:.1f}% of it)")
         for stream, what in ((np.ascontiguousarray(a.T), "A"), (w, "W")):
             x_t = on_card(stream)
             t_len, lanes = stream.shape
-            ms = median_ms(lambda: K.operand_stream_toggles(x_t, 16), calls=20)
-            plain = median_ms(lambda: K.operand_stream_toggles_plain(x_t, 16), calls=2, bursts=3)
-            bound, by = bound_ms(4 * t_len * lanes + 8, OPS_PER_BUS_VALUE * t_len * lanes)
+            ms = median_ms(lambda: K.operand_stream_toggles(x_t, OPERAND_BUS), calls=20)
+            plain = median_ms(lambda: K.operand_stream_toggles_plain(x_t, OPERAND_BUS), calls=2, bursts=3)
+            bound, by = toggle_bound_ms(4 * t_len * lanes + 8, 0, (t_len - 1) * lanes, OPERAND_BUS)
             add("operand_stream_toggles", ms, plain, bound, by)
+            # K5 on the same int32 stream and bus, for the K4 step (K4's
+            # wrapper launching K5's kernel); not a main-path launch.
+            ms5 = median_ms(lambda: TC.stream_toggles(x_t, OPERAND_BUS), calls=20)
+            k5_at_k4["K4 ms"] += ms
+            k5_at_k4["K5 ms"] += ms5
+            k5_at_k4["calls"] += 1
             print(f"  K4 {name} {what} stream {t_len}x{lanes}: {ms:.4f} ms, plain {plain:.4f} ms, "
-                  f"bound {bound:.6f} ms ({by})")
+                  f"bound {bound:.6f} ms ({by}); K5 on it {ms5:.4f} ms")
+    print(f"  K5 at K4's shapes: {k5_at_k4['K5 ms']:.4f} ms over {k5_at_k4['calls']} streams, "
+          f"K4 {k5_at_k4['K4 ms']:.4f} ms")
 
     # K2: the partial sums these tasks need, t_seg x valid_r x cols each
     # (time padding included: it is the kernel's input); K3: every value
@@ -867,27 +986,30 @@ def main() -> None:
     t_seg, cols = strips_t.shape[1] - 1, tiles_t.shape[2]
     task_sums = t_seg * cols * int(vr_t.sum())
     useful_sums = sum(int(np.prod(job.gemm_shape())) for job in table1_jobs["WS"])
-    ms = median_ms(lambda: K.ws_task_toggles(*ws_arrays, 37), calls=20)
-    plain = median_ms(lambda: K.ws_task_toggles_plain(*ws_arrays, 37), calls=2, bursts=3)
+    ms = median_ms(lambda: K.ws_task_toggles(*ws_arrays, WS_BUS_BITS), calls=20)
+    plain = median_ms(lambda: K.ws_task_toggles_plain(*ws_arrays, WS_BUS_BITS), calls=2, bursts=3)
     k2_bytes = sum(x.numel() * x.element_size() for x in ws_arrays) + 8 * n_tasks
-    bound, by = bound_ms(k2_bytes, OPS_PER_PARTIAL_SUM * task_sums)
+    bound, by = toggle_bound_ms(k2_bytes, task_sums, task_sums, WS_BUS_BITS)
+    useful, _ = toggle_bound_ms(0, useful_sums, useful_sums, WS_BUS_BITS)
     add("ws_task_toggles", ms, plain, bound, by)
     print(f"  K2 Table-I WS bucket, {n_tasks} tasks, {task_sums} partial sums "
-          f"({useful_sums} in the GEMMs: bound {OPS_PER_PARTIAL_SUM * useful_sums / PEAK_OPS_PER_S * 1e3:.5f} ms): "
+          f"({useful_sums} in the GEMMs: bound {useful:.5f} ms): "
           f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.5f} ms ({by})")
     for strips_x, bits, what in ((strips_t, 16, "WS strips"), (os_strips, 16, "OS stream strips")):
         ms = median_ms(lambda: K.strip_toggles(strips_x, bits), calls=20)
         plain = median_ms(lambda: K.strip_toggles_plain(strips_x, bits), calls=2, bursts=3)
         values = strips_x.numel()
-        bound, by = bound_ms(4 * values + 8 * strips_x.shape[0], OPS_PER_BUS_VALUE * values)
+        transitions = values - strips_x.shape[0] * strips_x.shape[2]  # row 0 of each strip seeds
+        bound, by = toggle_bound_ms(4 * values + 8 * strips_x.shape[0], 0, transitions, bits)
         add("strip_toggles", ms, plain, bound, by)
         print(f"  K3 Table-I {what} {tuple(strips_x.shape)}: {ms:.4f} ms, plain {plain:.4f} ms, "
               f"bound {bound:.6f} ms ({by})")
 
     # K5: each stream the kernel-library path counts, at its bus width; every
-    # value read once, 3 operations each (XOR, AND, popcount).
-    print("  kernel library (bound = max(bytes / 3.35 TB/s, ops / the rate of the operands' "
-          "type: 67 Tops/s lane operations, 989 TFLOP/s bf16, 1979 Tops/s int8)):")
+    # value read once.  The 12 partial-sum streams and the 36 operand streams
+    # are summed apart.
+    print("  kernel library (K5 bound as K1-K4; K6 and K7: max(bytes / 3.35 TB/s, ops / the "
+          "rate of the operands' type: 989 TFLOP/s bf16, 1979 Tops/s int8, 67 TFLOP/s f32)):")
     mask16 = bus_mask(16)
     for name, a, w, a8, w8, _ in lib_layers:
         m, k = a.shape
@@ -897,17 +1019,25 @@ def main() -> None:
         sums = partial_sums(a_t, w_t)
         sums &= bus_mask(WS_BUS_BITS)
         stream = sums.reshape(m, k * n)
-        layer_ms = layer_plain = layer_bound = 0.0
+        layer = {}
         for x, bits in ((a_t, 32), (at_t, 32), (w_t.long() & mask16, 64), (stream, 64),
                         (a_t, 16), (at_t, 16), (w_t, 16), (stream, WS_BUS_BITS)):
             ms = median_ms(lambda: TC.stream_toggles(x, bits), calls=20)
             plain = median_ms(lambda: TC.stream_toggles_plain(x, bits), calls=2, bursts=3)
-            bound, by = bound_ms(x.numel() * x.element_size() + 8,
-                                 OPS_PER_BUS_VALUE * (x.shape[0] - 1) * x.shape[1])
-            add("stream_toggles", ms, plain, bound, by)
-            layer_ms, layer_plain, layer_bound = layer_ms + ms, layer_plain + plain, layer_bound + bound
-        print(f"  K5 {name} 8 streams (the largest {tuple(stream.shape)} int64): {layer_ms:.4f} ms, "
-              f"plain {layer_plain:.4f} ms, bound {layer_bound:.5f} ms (bytes)")
+            bound, by = toggle_bound_ms(x.numel() * x.element_size() + 8, 0,
+                                        (x.shape[0] - 1) * x.shape[1], bits)
+            part = "partial-sum streams" if x is stream else "operand streams"
+            add("stream_toggles", ms, plain, bound, by, part=part)
+            q = layer.setdefault(part, [0, 0.0, 0.0, 0.0, set()])
+            q[0] += 1
+            q[1] += ms
+            q[2] += plain
+            q[3] += bound
+            q[4].add(by)
+        print(f"  K5 {name}: " + "; ".join(
+            f"{part} {q[0]} calls {q[1]:.4f} ms, plain {q[2]:.4f} ms, bound {q[3]:.5f} ms "
+            f"({'/'.join(sorted(q[4]))}; {100 * q[3] / q[1]:.1f}% of it)" for part, q in layer.items())
+            + f" (the largest {tuple(stream.shape)} int64)")
         del sums, stream
         # K6 at int16 (no PyTorch CUDA int16 GEMM) and int8 (torch._int_mm)
         # on the tensor cores: the whole call (planes, zeroed output, GEMM)
@@ -932,6 +1062,10 @@ def main() -> None:
             print(f"  K6 {name} {part} {m}x{k}x{n}: tensor cores {tc:.4f} ms (prep {prep:.4f} ms, "
                   f"plain {prep_plain:.4f} ms, bound {bound_prep:.6f} ms), plain {plain:.4f} ms, "
                   f"{lib_text}, bound {bound_tc:.5f} ms ({by_tc})")
+    for part, q in parts["stream_toggles"].items():
+        print(f"  K5 {part}, all layers: {q['calls']} calls {q['ms']:.4f} ms, plain "
+              f"{q['plain_ms']:.4f} ms, bound {q['bound_ms']:.5f} ms ("
+              f"{100 * q['bound_ms'] / q['ms']:.1f}% of it)")
     # K6 at the Qwen3-8B MLP width: bf16 on the tensor cores, and f32 (its
     # one type on the main path's shapes) on the CUDA cores at the f32
     # CUDA-core rate; each beside torch.matmul on the same inputs (bf16 out
@@ -1087,6 +1221,7 @@ def main() -> None:
     kernels = []
     for name, t in totals.items():
         source, replaces = meta[name]
+        term = max(t["bound_by"], key=t["bound_by"].get)
         row = {
             "name": name,
             "route": "cuda",
@@ -1097,10 +1232,14 @@ def main() -> None:
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
-            "bound_by": max(t["bound_by"], key=t["bound_by"].get),
+            "bound_by": "bytes" if term == "bytes" else "operations",
             # None for the toggle counters: no PyTorch call counts bus toggles
             "library_ms": t["library_ms"],
+            # bytes, integer ops or popcounts (K1-K5); operations (K6, K7)
+            "bound_term": term,
         }
+        if name == "operand_stream_toggles":
+            row["stream_toggles_on_its_inputs"] = k5_at_k4
         if name == "ws_gemm_tc":
             row["library_covers"] = ("int8 (torch._int_mm) and bf16 (torch.matmul) calls; "
                                      "PyTorch has no CUDA int16 GEMM")

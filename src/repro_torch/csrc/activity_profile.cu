@@ -7,34 +7,64 @@
 //    file): exact toggle total of a (T, L) bundle of independent operand
 //    lane streams, the whole per-GEMM work of the output-stationary dataflow.
 //
-// What bounds them on this card
-//   K1 is bound by integer operations: every (t, r, c) partial sum costs an
-//   int64 multiply-add, an XOR, a mask and a popcount, and the operands it
-//   reads are a few MB. So it keeps every partial sum in a register and
-//   never writes one to memory: a warp holds 32 consecutive time steps of
-//   one array column, each lane runs the running sum down the reduction
-//   rows, and the predecessor in time is one __shfl_up_sync away.
+// What bounds K1 on this card
+//   Every (t, r, c) partial sum S[t, r, c] = sum_{r' <= r} a[t, r'] w[r', c]
+//   costs a multiply-add into an int64, a logic op per 32-bit word of the
+//   b_v bus and b_v / 32 popcounts, against a few MB of operands. Hopper
+//   pops 16 counts a clock on an SM against 64 integer ops, so the popcount
+//   rate bounds it (0.11 ms for the six Table-I layers at b_v = 37), then
+//   the logic ops. The multiply-add is a minor share, so the tensor cores,
+//   whose products never leave their accumulators, are of no use here.
+//
+// The K1 design
+//   * Tiles staged in shared memory. A block of kWarps warps owns one k tile
+//     (`rows` reduction rows), a group of 32 * cw columns and rw = kWarps / cw
+//     runs of kSteps time transitions (cw = 4, 2 or 1, whichever divides the
+//     column groups). It stages its runs' activation rows (each run's seed row
+//     and kSteps rows, transposed so a run's kVals values of one reduction
+//     row are contiguous) and the W tile, kRowChunk reduction rows at a time,
+//     with loads where neighbouring threads take neighbouring addresses.
+//   * Registers blocked in time. A thread owns one column and one run: kVals
+//     int64 partial sums, its seed row's first. Walking r down the tile it
+//     reads w[r][c] once (a conflict-free 32-bit load) and its run's a[t][r]
+//     as four 16-byte broadcast loads, adds kVals products and counts the
+//     kSteps transitions between neighbouring sums in registers: no shuffles,
+//     and the recomputed seed costs one multiply-add in kVals, where the
+//     warp-per-32-steps design spent a whole lane in 32 and a shuffle per sum.
+//   * Masked popcounts. The low word of a transition takes one popcount. On a
+//     bus wider than 32 bits, the high word's hb = b_v - 32 bits are masked
+//     and packed 32 / S to a word (field width S = 5, 8, 16 or 32, the
+//     smallest that holds hb) before one popcount: at b_v = 37, 15
+//     transitions take 15 + 3 popcounts instead of 30.
+//   * The h bus is counted once per (k tile, time run), from the staged rows,
+//     by the block of column group 0, and scaled by the n tiles.
+//   * Every loop is bounded by the true M, K and N: rows past M repeat row
+//     M - 1 (equal sums, no toggles), columns past N skip the walk.
+//   * Each warp sums its counts with one REDUX per staged chunk (32-bit
+//     counts that cannot overflow there) into a 64-bit total; the block adds
+//     its totals into the output with two 64-bit atomics. The C entry zeroes
+//     the output on the stream, so the caller allocates it uninitialised.
+//
+// What bounds K4, and its design
 //   K4 reads each stream element once and does three operations on it, so
 //   it is bound by bytes: one thread per lane reads a column of a time
 //   chunk, neighbouring threads on neighbouring addresses.
 //
-// What the TPU kernels did that this design drops
+// What the TPU kernels did that these designs drop
 //   * The Pallas grid runs in order and carries the previous time block's
-//     last row in VMEM scratch. CUDA blocks run in any order, so every warp
-//     (K1) or block (K4) recomputes its seed row t0 - 1 itself: lane 0 of a
-//     K1 warp is the seed and counts nothing. The first chunk seeds with
-//     t = 0, so its first transition counts zero.
+//     last row in VMEM scratch. CUDA blocks run in any order, so every K1
+//     run and K4 block recomputes its seed row t0 - 1 itself. The first run
+//     seeds with t = 0, so its first transition counts zero.
 //   * The lo/hi int32 planes stood in for 64-bit integers, which the TPU's
 //     vector unit lacks. Here the sums are native int64, and a toggle count
-//     is __popcll((s ^ prev) & mask), the same bits as the numpy oracle's
-//     two's-complement bus representation. Operand values are sign-extended
-//     to int64 before the XOR, so on a bus wider than 32 bits the bits above
-//     31 flip with the sign, as on the reference.
-//   * Per-cell int32 partials become one 64-bit atomicAdd per block into an
-//     int64 total, so no partial has an overflow bound.
+//     takes the same bits as the numpy oracle's two's-complement bus
+//     representation. Operand values are sign-extended to int64 before the
+//     XOR, so on a bus wider than 32 bits the bits above 31 flip with the
+//     sign, as on the reference.
+//   * Per-cell int32 partials become 64-bit atomics into int64 totals, so
+//     no partial has an overflow bound.
 //   * Edges: the kernels read the unpadded operands and bound every loop by
-//     the true extents (r < valid rows of the k tile, c < N, t < M), where
-//     the TPU kernel padded and masked.
+//     the true extents, where the TPU kernel padded and masked.
 
 #include <climits>
 #include <cstdint>
@@ -44,9 +74,11 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kLanes = 32;            // time steps a K1 warp holds; lane 0 seeds
-constexpr int kSteps = kLanes - 1;    // transitions a K1 warp counts
-constexpr int kWarps = 8;             // K1: array columns per block, one per warp
+constexpr int kLanes = 32;
+constexpr int kSteps = 15;            // K1: transitions a thread counts (kernel.py WS_KERNEL_STEPS)
+constexpr int kVals = kSteps + 1;     // K1: its time rows, the seed row first
+constexpr int kWarps = 4;             // K1: warps per block
+constexpr int kRowChunk = 32;         // K1: reduction rows staged at a time
 constexpr int kStreamThreads = 256;   // K4: stream lanes per block
 constexpr int kStreamSteps = 64;      // K4: transitions per block
 
@@ -60,69 +92,153 @@ __device__ __forceinline__ unsigned long long warp_sum(unsigned long long x) {
   return x;
 }
 
-// One block per (time chunk, group of kWarps columns, k tile); warp w of the
-// block owns column c = group * kWarps + w, lane l owns time step
-// t = chunk * kSteps + l. The h bus of a k strip is the same stream for
-// every n tile, so blocks of column group 0 count it once and scale it by
-// n_tiles.
+// K1's launch: the GEMM, its grid and its buses.
+struct WsPlan {
+  int m, k, n, rows;
+  int runs;        // ceil((m - 1) / kSteps) time runs
+  int run_blocks;  // ceil(runs / rw)
+  int col_blocks;  // column groups of 32 / cw
+  int cw;          // column groups a block owns; rw = kWarps / cw runs
+  unsigned v_lo, v_hi;        // the b_v mask's low and high words
+  unsigned h_lo, h_hi_bits;   // the b_h mask's low word and its bits above 31
+  unsigned long long n_tiles;
+};
+
+// Toggles of a sign-extended int32 XOR `d` on a bus of low-word mask `lo`
+// and `hi_bits` bits above bit 31 (all copies of bit 31).
+__device__ __forceinline__ unsigned bus32(int32_t d, unsigned lo, unsigned hi_bits) {
+  return __popc(static_cast<unsigned>(d) & lo) + (d < 0 ? hi_bits : 0u);
+}
+
+// The toggles of the kSteps transitions between neighbouring partial sums
+// s[j - 1] -> s[j]. S is the field width of the packed high words: 0 when
+// the bus has none (b_v <= 32), else 32 / S masked high words share one
+// popcount; a field's high word is below 2^S, so fields never overlap and
+// adding them is OR-ing them.
+template <int S>
+__device__ __forceinline__ unsigned transitions(const long long (&s)[kVals], unsigned lo_mask,
+                                                unsigned hi_mask) {
+  constexpr int kFields = S ? 32 / S : 1;
+  constexpr int kWords = (kSteps + kFields - 1) / kFields;
+  unsigned cnt = 0;
+  unsigned packed[kWords] = {};
+#pragma unroll
+  for (int j = 1; j < kVals; ++j) {
+    const unsigned lo = static_cast<unsigned>(s[j]) ^ static_cast<unsigned>(s[j - 1]);
+    cnt += __popc(lo & lo_mask);
+    if constexpr (S > 0) {
+      const unsigned hi =
+          (static_cast<unsigned>(s[j] >> 32) ^ static_cast<unsigned>(s[j - 1] >> 32)) & hi_mask;
+      packed[(j - 1) / kFields] += hi << ((j - 1) % kFields * S);
+    }
+  }
+  if constexpr (S > 0) {
+#pragma unroll
+    for (int i = 0; i < kWords; ++i) cnt += __popc(packed[i]);
+  }
+  return cnt;
+}
+
+// One block per (k tile, column block, run block); see the note at the top.
+// Warp w owns column group w % cw of the block and run w / cw of it.
+template <int S>
 __global__ void __launch_bounds__(kLanes * kWarps)
 ws_activity_toggles_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ w,
-                           unsigned long long* __restrict__ out, int m, int k, int n,
-                           int rows, int b_h, int b_v, int t_chunks, int col_groups,
-                           unsigned long long n_tiles) {
-  const long long bid = blockIdx.x;
-  const int chunk = static_cast<int>(bid % t_chunks);
-  const long long rest = bid / t_chunks;
-  const int group = static_cast<int>(rest % col_groups);
-  const int kt = static_cast<int>(rest / col_groups);
-  const int lane = threadIdx.x % kLanes;
-  const int warp = threadIdx.x / kLanes;
-
-  const int k0 = kt * rows;
-  const int valid_r = min(rows, k - k0);
-  const int t_raw = chunk * kSteps + lane;
-  const bool counts = lane > 0 && t_raw < m;  // lane 0 is the seed row t0 - 1
-  const int t = min(t_raw, m - 1);            // lanes past the end read a valid row
-  const int32_t* a_row = a + static_cast<long long>(t) * k + k0;
-
-  unsigned long long v_cnt = 0;
-  unsigned long long h_cnt = 0;
-  const int c = group * kWarps + warp;
-  if (c < n) {  // uniform across the warp, so the shuffles below see every lane
-    const unsigned long long mask = bus_mask(b_v);
-    const int32_t* w_col = w + static_cast<long long>(k0) * n + c;
-    long long s = 0;
-    for (int r = 0; r < valid_r; ++r) {
-      s += static_cast<long long>(a_row[r]) * static_cast<long long>(w_col[static_cast<long long>(r) * n]);
-      const long long prev = __shfl_up_sync(kFull, s, 1);
-      if (counts) v_cnt += __popcll(static_cast<unsigned long long>(s ^ prev) & mask);
-    }
-  }
-  if (group == 0) {
-    const unsigned long long mask = bus_mask(b_h);
-    for (int r = warp; r < valid_r; r += kWarps) {
-      const long long x = a_row[r];
-      const long long prev = __shfl_up_sync(kFull, x, 1);
-      if (counts) h_cnt += __popcll(static_cast<unsigned long long>(x ^ prev) & mask);
-    }
-  }
-
+                           unsigned long long* __restrict__ out, WsPlan p) {
+  // at[r][g][j]: run g's time row j (its seed first) at reduction row r
+  __shared__ __align__(16) int32_t at[kRowChunk * kWarps * kVals];
+  // ws[r][cc]: column cc of the block at reduction row r
+  __shared__ int32_t ws[kRowChunk * kLanes * kWarps];
   __shared__ unsigned long long part[2][kWarps];
-  h_cnt = warp_sum(h_cnt);
-  v_cnt = warp_sum(v_cnt);
+
+  const int cw = p.cw;
+  const int rw = kWarps / cw;
+  const int ncols = kLanes * cw;
+  long long bid = blockIdx.x;
+  const int rb = static_cast<int>(bid % p.run_blocks);
+  bid /= p.run_blocks;
+  const int cb = static_cast<int>(bid % p.col_blocks);
+  const int kt = static_cast<int>(bid / p.col_blocks);
+  const int warp = threadIdx.x / kLanes;
+  const int lane = threadIdx.x % kLanes;
+  const int g = warp / cw;
+  const int cc = (warp % cw) * kLanes + lane;
+  const int c = cb * ncols + cc;
+  const int run = rb * rw + g;
+  const int t_base = rb * rw * kSteps;  // the block's first seed row
+  const int k0 = kt * p.rows;
+  const int valid_r = min(p.rows, p.k - k0);
+  const bool walks = run < p.runs && c < p.n;
+  const bool counts_h = cb == 0 && warp % cw == 0 && run < p.runs;
+
+  long long s[kVals];
+#pragma unroll
+  for (int j = 0; j < kVals; ++j) s[j] = 0;
+  unsigned long long v_warp = 0, h_warp = 0;  // valid in lane 0
+  for (int rc = 0; rc < valid_r; rc += kRowChunk) {
+    const int nr = min(kRowChunk, valid_r - rc);
+    __syncthreads();  // the previous chunk's reads are done
+    for (int e = threadIdx.x; e < nr * rw * kVals; e += blockDim.x) {
+      const int j = e % kVals;
+      const int gg = (e / kVals) % rw;
+      const int r = e / (kVals * rw);
+      const int t = min(t_base + gg * kSteps + j, p.m - 1);
+      at[e] = a[static_cast<long long>(t) * p.k + k0 + rc + r];
+    }
+    for (int e = threadIdx.x; e < nr * ncols; e += blockDim.x) {
+      const int col = cb * ncols + e % ncols;
+      ws[e] = col < p.n ? w[static_cast<long long>(k0 + rc + e / ncols) * p.n + col] : 0;
+    }
+    __syncthreads();
+
+    unsigned h = 0;
+    if (counts_h) {  // lanes take (r, j) pairs of run g, j fastest
+      for (int e = lane; e < nr * kVals; e += kLanes) {
+        const int j = e % kVals;
+        const int32_t* row = at + ((e / kVals) * rw + g) * kVals;
+        if (j > 0) h += bus32(row[j] ^ row[j - 1], p.h_lo, p.h_hi_bits);
+      }
+    }
+    unsigned v = 0;
+    if (walks) {
+      for (int r = 0; r < nr; ++r) {
+        const int32_t wv = ws[r * ncols + cc];
+        const int4* ar = reinterpret_cast<const int4*>(at + (r * rw + g) * kVals);
+        int32_t av[kVals];
+#pragma unroll
+        for (int q = 0; q < kVals / 4; ++q) {
+          const int4 four = ar[q];
+          av[4 * q] = four.x;
+          av[4 * q + 1] = four.y;
+          av[4 * q + 2] = four.z;
+          av[4 * q + 3] = four.w;
+        }
+#pragma unroll
+        for (int j = 0; j < kVals; ++j) s[j] += static_cast<long long>(av[j]) * static_cast<long long>(wv);
+        v += transitions<S>(s, p.v_lo, p.v_hi);
+      }
+    }
+    // a chunk's counts are at most kRowChunk * kSteps * 64 a thread (2^20 a
+    // warp), so the 32-bit sums cannot overflow
+    v = __reduce_add_sync(kFull, v);
+    h = __reduce_add_sync(kFull, h);
+    v_warp += v;
+    h_warp += h;
+  }
+
   if (lane == 0) {
-    part[0][warp] = h_cnt;
-    part[1][warp] = v_cnt;
+    part[0][warp] = h_warp;
+    part[1][warp] = v_warp;
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    unsigned long long h = 0, v = 0;
+    unsigned long long h_tot = 0, v_tot = 0;
     for (int i = 0; i < kWarps; ++i) {
-      h += part[0][i];
-      v += part[1][i];
+      h_tot += part[0][i];
+      v_tot += part[1][i];
     }
-    if (h) atomicAdd(out, h * n_tiles);
-    if (v) atomicAdd(out + 1, v);
+    if (h_tot) atomicAdd(out, h_tot * p.n_tiles);
+    if (v_tot) atomicAdd(out + 1, v_tot);
   }
 }
 
@@ -162,29 +278,65 @@ operand_stream_toggles_kernel(const int32_t* __restrict__ x, unsigned long long*
 
 }  // namespace
 
-// C entry points. Pointers are device pointers; `out` is zeroed by the
-// caller and receives int64 totals. Each returns cudaGetLastError() after
-// its launch (cudaErrorInvalidValue for a grid it cannot launch), so a
-// refused launch is reported to the caller. Neither synchronises.
+// C entry points. Pointers are device pointers; `out` receives int64
+// totals. Each returns the first CUDA error of its launch
+// (cudaErrorInvalidValue for a grid it cannot launch), so a refused launch
+// is reported to the caller. Neither synchronises.
 
+// `out` (two int64: h, v) is zeroed here, on the stream, before the launch.
 extern "C" int ws_activity_toggles(const void* a, const void* w, void* out, int m, int k,
                                    int n, int rows, int cols, int b_h, int b_v,
                                    void* stream) {
-  if (m < 2 || k < 1 || n < 1 || rows < 1 || cols < 1) return cudaErrorInvalidValue;
-  const int k_tiles = (k + rows - 1) / rows;
-  const int col_groups = (n + kWarps - 1) / kWarps;
-  const int t_chunks = (m - 2) / kSteps + 1;  // ceil((m - 1) / kSteps)
-  const long long blocks = static_cast<long long>(t_chunks) * col_groups * k_tiles;
+  if (m < 2 || k < 1 || n < 1 || rows < 1 || cols < 1 || b_h < 1 || b_h > 64 || b_v < 1 ||
+      b_v > 64) {
+    return cudaErrorInvalidValue;
+  }
+  WsPlan p{};
+  p.m = m;
+  p.k = k;
+  p.n = n;
+  p.rows = rows;
+  p.runs = (m - 2) / kSteps + 1;  // ceil((m - 1) / kSteps)
+  const int col_groups = (n + kLanes - 1) / kLanes;
+  p.cw = col_groups % 4 == 0 ? 4 : (col_groups % 2 == 0 ? 2 : 1);
+  p.col_blocks = col_groups / p.cw;
+  const int rw = kWarps / p.cw;
+  p.run_blocks = (p.runs + rw - 1) / rw;
+  const long long k_tiles = (k + rows - 1) / rows;
+  const long long blocks = k_tiles * p.col_blocks * p.run_blocks;
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  const unsigned long long n_tiles = static_cast<unsigned long long>((n + cols - 1) / cols);
-  ws_activity_toggles_kernel<<<static_cast<unsigned>(blocks), kLanes * kWarps, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(a), static_cast<const int32_t*>(w),
-      static_cast<unsigned long long*>(out), m, k, n, rows, b_h, b_v, t_chunks, col_groups,
-      n_tiles);
+  const unsigned long long v_mask = b_v >= 64 ? ~0ull : (1ull << b_v) - 1;
+  const unsigned long long h_mask = b_h >= 64 ? ~0ull : (1ull << b_h) - 1;
+  p.v_lo = static_cast<unsigned>(v_mask);
+  p.v_hi = static_cast<unsigned>(v_mask >> 32);
+  p.h_lo = static_cast<unsigned>(h_mask);
+  p.h_hi_bits = b_h > 32 ? b_h - 32 : 0;
+  p.n_tiles = static_cast<unsigned long long>((n + cols - 1) / cols);
+
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t zeroed = cudaMemsetAsync(out, 0, 2 * sizeof(unsigned long long), s);
+  if (zeroed != cudaSuccess) return static_cast<int>(zeroed);
+  const int hb = b_v - 32;  // the bus's bits above the low word
+  const auto launch = [&](auto kernel) {
+    kernel<<<static_cast<unsigned>(blocks), kLanes * kWarps, 0, s>>>(
+        static_cast<const int32_t*>(a), static_cast<const int32_t*>(w),
+        static_cast<unsigned long long*>(out), p);
+  };
+  if (hb <= 0) {
+    launch(ws_activity_toggles_kernel<0>);
+  } else if (hb <= 5) {
+    launch(ws_activity_toggles_kernel<5>);
+  } else if (hb <= 8) {
+    launch(ws_activity_toggles_kernel<8>);
+  } else if (hb <= 16) {
+    launch(ws_activity_toggles_kernel<16>);
+  } else {
+    launch(ws_activity_toggles_kernel<32>);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
+// `out` (one int64) is zeroed by the caller.
 extern "C" int operand_stream_toggles(const void* x, void* out, int t_len, int lanes, int bits,
                                       void* stream) {
   if (t_len < 2 || lanes < 1) return cudaErrorInvalidValue;

@@ -57,9 +57,18 @@ def on_cpu(x: torch.Tensor, fn_name: str) -> bool:
 
 def launch(source: str, fn_name: str, device: torch.device, *args) -> None:
     """Call the C entry point ``fn_name`` of ``csrc/<source>.cu`` on
-    ``device``'s current stream; raise if it reports a CUDA error."""
-    lib = _build.load(source)
-    with torch.cuda.device(device):
-        err = getattr(lib, fn_name)(*args, torch.cuda.current_stream(device).cuda_stream)
+    ``device``'s current stream; raise if it reports a CUDA error.  The
+    device is made current around the call only when it is not already.
+    The stream handle comes from PyTorch's raw getter (the one its own
+    kernel launchers use), which skips building a ``torch.cuda.Stream``:
+    a few microseconds a call."""
+    fn = getattr(_build.load(source), fn_name)
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    if index == current:
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"{fn_name}: CUDA launch failed with error {err}")

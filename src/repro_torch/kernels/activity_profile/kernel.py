@@ -43,6 +43,7 @@ __all__ = [
     "MAX_BLOCK_T",
     "MIN_BLOCK_T",
     "TASK_CHUNK_BUDGET",
+    "WS_KERNEL_STEPS",
     "choose_block_t",
     "choose_task_chunk",
     "ws_task_toggles",
@@ -57,6 +58,11 @@ __all__ = [
 
 # Largest int64 partial-sum block a plain version materializes at once.
 PLAIN_BLOCK_ELEMENTS = 1 << 22
+
+# Time transitions each K1 thread counts from its recomputed seed row
+# (``kSteps`` in ``csrc/activity_profile.cu``); the plain version with
+# ``block_t=WS_KERNEL_STEPS`` cuts time as the kernel does.
+WS_KERNEL_STEPS = 15
 
 # The reference engine's time-block budget: block_t * rows * cols plane
 # elements.  Not a limit of the kernels here; the batched pipeline's shape
@@ -171,9 +177,9 @@ def ws_activity_toggles(
         return ws_activity_toggles_plain(a, w, rows, cols, b_h, b_v)
     m, k = a.shape
     n = w.shape[1]
-    out = torch.zeros(2, dtype=torch.int64, device=a.device)
     if m < 2 or k == 0 or n == 0:
-        return out
+        return torch.zeros(2, dtype=torch.int64, device=a.device)
+    out = torch.empty(2, dtype=torch.int64, device=a.device)  # the C entry zeroes it
     launch(
         "activity_profile", "ws_activity_toggles", a.device,
         a.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n, rows, cols, b_h, b_v,

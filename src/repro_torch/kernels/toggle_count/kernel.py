@@ -66,9 +66,9 @@ def stream_toggles(x: torch.Tensor, bits: int = 64) -> torch.Tensor:
     if on_cpu(x, "stream_toggles"):
         return stream_toggles_plain(x, bits)
     t, lanes = x.shape
-    out = torch.zeros(1, dtype=torch.int64, device=x.device)
     if t < 2 or lanes == 0:
-        return out
+        return torch.zeros(1, dtype=torch.int64, device=x.device)
+    out = torch.empty(1, dtype=torch.int64, device=x.device)  # the C entry zeroes it
     launch(
         "toggle_count", "stream_toggles", x.device,
         x.data_ptr(), out.data_ptr(), t, lanes, x.element_size(), bus_mask(bits) & (2**64 - 1),

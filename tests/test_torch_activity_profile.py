@@ -96,10 +96,11 @@ def test_os_counts_match_reference_bit_exact(case):
     assert _tuple(profile_gemm_toggles(*args, dataflow="OS", engine="torch")) == want
 
 
-@pytest.mark.parametrize("block_t", [1, 7, 8, 31, 64])
+@pytest.mark.parametrize("block_t", [1, 7, 8, K.WS_KERNEL_STEPS, 31, 64])
 def test_ws_plain_windows_recompute_seed_rows(block_t):
     """Windows of block_t transitions, each seeded with row t0 - 1 (the CUDA
-    kernel's decomposition), give the whole-stream counts."""
+    kernel's decomposition: runs of ``K.WS_KERNEL_STEPS``), give the
+    whole-stream counts."""
     case = (100, 40, 24, 16, 8, 16, 37)
     a, w = _rand_gemm(case)
     want = ref_oracle(a, w, *case[3:])[:2]

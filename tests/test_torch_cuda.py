@@ -71,6 +71,51 @@ def test_ws_kernel_matches_plain_and_oracle(card, case):
     assert tuple(got.tolist()) == profile_gemm_toggles_ref(a, w, *case[3:])[:2]
 
 
+# K1 at its edges: M around one run of K.WS_KERNEL_STEPS (15) transitions;
+# K below rows and not a multiple of it, and rows past one staged chunk of
+# 32; N off the 32-column groups; b_v on every high-word packing (none, 6,
+# 4, 2 and 1 fields to a popcount).
+K1_EDGE_CASES = [
+    (2, 40, 33, 32, 32, 16, 37),
+    (14, 40, 33, 32, 32, 16, 37),
+    (15, 40, 33, 32, 32, 16, 37),
+    (16, 40, 33, 32, 32, 16, 37),
+    (1025, 40, 33, 32, 32, 16, 37),
+    (40, 20, 65, 32, 32, 16, 37),
+    (40, 70, 100, 32, 16, 16, 37),
+    (40, 100, 29, 48, 8, 16, 37),
+    (40, 64, 64, 32, 32, 16, 20),
+    (40, 64, 64, 32, 32, 16, 32),
+    (40, 64, 64, 32, 32, 33, 33),
+    (40, 64, 64, 32, 32, 16, 40),
+    (40, 64, 64, 32, 32, 16, 45),
+    (40, 64, 64, 32, 32, 64, 64),
+]
+
+
+@pytest.mark.parametrize("case", K1_EDGE_CASES)
+def test_ws_kernel_edges_at_the_int16_extremes(card, case):
+    """Half the operands at -32768, -32767 or 32767, so that 32-deep partial
+    sums use all 37 bits; twice, so the uninitialised output is zeroed."""
+    rng = np.random.default_rng(list(case))
+    m, k, n = case[:3]
+    extremes = np.array([-32768, -32767, 32767])
+
+    def operand(shape):
+        return np.where(rng.random(shape) < 0.5, rng.choice(extremes, shape),
+                        rng.integers(-32768, 32768, size=shape))
+
+    a, w = operand((m, k)), operand((k, n))
+    a_t = torch.from_numpy(a.astype(np.int32)).to(card)
+    w_t = torch.from_numpy(w.astype(np.int32)).to(card)
+    want = list(profile_gemm_toggles_ref(a, w, *case[3:])[:2])
+    for _ in range(2):
+        got = K.ws_activity_toggles(a_t, w_t, *case[3:])
+        torch.cuda.synchronize()
+        assert got.tolist() == want
+    assert K.ws_activity_toggles_plain(a_t, w_t, *case[3:]).tolist() == want
+
+
 @pytest.mark.parametrize("case", CASES)
 def test_os_kernel_matches_oracle(card, case):
     a, w = _operands(case)
@@ -207,6 +252,67 @@ def test_stream_toggles_match_plain(card, shape, dtype):
         torch.cuda.synchronize()
         assert got.tolist() == TC.stream_toggles_plain(x, bits).tolist(), bits
     assert TC.stream_toggles.launches == before + 6
+
+
+def _stream(card, shape, dtype, seed, offset=0):
+    """A seeded (T, L) stream on the card whose storage begins ``offset``
+    elements into its allocation (a contiguous view, misaligned for
+    ``offset`` > 0)."""
+    rng = np.random.default_rng(seed)
+    hi = 2**31 if dtype == torch.int32 else 2**62
+    flat = torch.from_numpy(rng.integers(-hi, hi, size=shape[0] * shape[1] + offset))
+    return flat.to(dtype).to(card)[offset:].view(shape)
+
+
+def _check_stream(x, bits_list):
+    before = TC.stream_toggles.launches
+    for bits in bits_list:
+        got = TC.stream_toggles(x, bits)
+        torch.cuda.synchronize()
+        assert got.tolist() == TC.stream_toggles_plain(x, bits).tolist(), (tuple(x.shape), bits)
+    assert TC.stream_toggles.launches == before + len(bits_list)
+
+
+@pytest.mark.parametrize("lanes", [1, 3, 5, 4096, 4097])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_stream_toggles_on_a_misaligned_base(card, lanes, dtype):
+    """One element into its allocation: lanes 1, 3, 5 and 4097 take the
+    scalar path, 4096 the scalar head, the 16-byte groups and the tail."""
+    x = _stream(card, (37, lanes), dtype, [lanes, 1], offset=1)
+    assert x.data_ptr() % 16 != 0
+    _check_stream(x, (16, 37, 64))
+
+
+@pytest.mark.parametrize("t_len", [2, 3])
+@pytest.mark.parametrize("lanes", [1, 7, 1000, 4096])
+def test_stream_toggles_two_and_three_steps(card, t_len, lanes):
+    for dtype in (torch.int32, torch.int64):
+        _check_stream(_stream(card, (t_len, lanes), dtype, [t_len, lanes]), (8, 37, 64))
+
+
+@pytest.mark.parametrize("lanes", [128, 129])
+def test_stream_toggles_int32_on_every_wide_bus(card, lanes):
+    """An int32 stream on buses of 33-64 bits counts its sign copies."""
+    _check_stream(_stream(card, (300, lanes), torch.int32, [lanes]), range(33, 65))
+
+
+def test_stream_toggles_lanes_beyond_the_old_grid_stride(card):
+    """600,000 int64 lanes, more than the 540,672 elements the earlier
+    grid-stride design spanned at once."""
+    _check_stream(_stream(card, (4, 600_000), torch.int64, 600), (37, 64))
+
+
+def test_stream_toggles_output_is_zeroed_by_the_kernel(card):
+    """The wrapper allocates its output uninitialised: a freed block that
+    held junk, handed back by the caching allocator, must not add in."""
+    x = _stream(card, (50, 300), torch.int64, 7)
+    want = TC.stream_toggles_plain(x, 37).tolist()
+    for _ in range(3):
+        junk = torch.full((1,), -12345, dtype=torch.int64, device=card)
+        del junk
+        got = TC.stream_toggles(x, 37)
+        torch.cuda.synchronize()
+        assert got.tolist() == want
 
 
 def test_toggle_count_entry_points_on_the_card(card):

@@ -1,6 +1,7 @@
-"""The port stands alone: no module under ``src/repro_torch/`` and not
-``chip_smoke.py`` imports ``jax`` or anything of the JAX package ``repro``,
-and importing every port module loads neither."""
+"""The port stands alone: no module under ``src/repro_torch/``, not
+``chip_smoke.py`` and no script under ``tools/`` imports ``jax`` or
+anything of the JAX package ``repro``, and importing every port module
+loads neither."""
 
 import ast
 import os
@@ -11,7 +12,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "tools").glob("*.py")))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

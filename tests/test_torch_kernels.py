@@ -40,6 +40,8 @@ from repro.kernels.ws_matmul.ops import ws_matmul as ref_ws_matmul
 from repro_torch.core.switching import stream_toggle_rate
 from repro_torch.core.workloads import RESNET50_TABLE1, conv_layer_job
 from repro_torch.kernels._engine import CudaUnavailableError
+from repro_torch.kernels.activity_profile import kernel as AK
+from repro_torch.kernels.bitops import bus_mask, popcount64
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention import kernel as FA
 from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -181,6 +183,47 @@ def test_toggle_count_contract():
     assert TC.stream_toggles.launches == before  # CPU tensors run the plain version
     with pytest.raises(ValueError, match="unknown engine"):
         stream_toggle_count(np.zeros((3, 2), np.int32), engine="xla")
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (3, 5), (17, 3), (100, 64), (33, 129)])
+def test_k4_and_k5_plain_versions_agree_on_int32_streams(shape):
+    """K4 (``operand_stream_toggles``) and K5 (``stream_toggles``) compute one
+    function on an int32 (T, L) stream: equal totals on every bus width,
+    on ragged shapes, so K4's wrapper may launch K5's kernel."""
+    x = torch.from_numpy(
+        np.random.default_rng(list(shape)).integers(-(2**31), 2**31, size=shape).astype(np.int32)
+    )
+    for bits in range(1, 65):
+        k4 = AK.operand_stream_toggles_plain(x, bits).tolist()
+        assert k4 == TC.stream_toggles_plain(x, bits).tolist(), bits
+        assert k4 == AK.operand_stream_toggles_plain(x, bits, block_t=4).tolist(), bits
+
+
+def _packed_transition_toggles(d: torch.Tensor, bits: int) -> int:
+    """A CPU rendering of K1's masked popcount (``transitions<S>`` in
+    ``csrc/activity_profile.cu``) over rows of ``AK.WS_KERNEL_STEPS``
+    transition XORs ``d`` (int64) on a ``bits``-wide bus, 32 < bits <= 64:
+    one popcount of each low word, and the masked high words packed 32 // S
+    to a word, S the smallest of 5, 8, 16 and 32 that holds bits - 32."""
+    steps = AK.WS_KERNEL_STEPS
+    assert d.shape[-1] == steps and 32 < bits <= 64
+    hb = bits - 32
+    width = next(s for s in (5, 8, 16, 32) if hb <= s)
+    fields = 32 // width
+    hi = (d >> 32) & bus_mask(hb)
+    words = torch.zeros(d.shape[:-1] + (-(-steps // fields),), dtype=torch.int64)
+    for j in range(steps):
+        words[..., j // fields] += hi[..., j] << (j % fields * width)
+    assert int(words.max()) < 2**32  # the fields fill at most one 32-bit word
+    return int(popcount64(d & 0xFFFFFFFF).sum() + popcount64(words).sum())
+
+
+@pytest.mark.parametrize("bits", range(33, 65))
+def test_k1_packed_high_words_count_every_bit(bits):
+    rng = np.random.default_rng(bits)
+    d = torch.from_numpy(rng.integers(-(2**63), 2**63, size=(64, AK.WS_KERNEL_STEPS), dtype=np.int64))
+    d[0] = -1  # every bit set
+    assert _packed_transition_toggles(d, bits) == int(popcount64(d & bus_mask(bits)).sum())
 
 
 def test_table1_operand_streams_recount_the_reference():
