@@ -11,15 +11,17 @@ Phases (any mismatch exits non-zero; nothing is caught):
    together), print the build time and each kernel's registers and spills,
    and check with ``cuobjdump -sass`` that the tensor-core kernels hold
    ``HGMMA`` (bf16) and ``IGMMA`` (int8) instructions; print the ``POPC``,
-   ``SHFL``, 128-bit ``LDG`` and ``REDUX`` counts of K1 and K5 (neither may
-   hold a shuffle, and K5 must hold 16-byte loads).
+   ``SHFL``, 128-bit ``LDG`` and ``REDUX`` counts of K1, K2 and K5 (none may
+   hold a shuffle or spill, and K5 must hold 16-byte loads).
 2. Hold each kernel against its plain PyTorch version on the card, element
-   for element: K1 and K4 on the reference test matrices and on every
-   ResNet50 Table-I layer (and the numpy oracle on the small cases), K1
-   also on its edge cases at the int16 extremes; K2 and
-   K3 on the stacked buckets the port's scheduler builds for the
-   reference's ragged WS and OS job sets, and on the Table-I WS bucket
-   (3776 tasks over 720 strips) and OS stream bucket (496 strips); K5, K6
+   for element: K1 and K4 (K4's wrapper launches K5's kernel) on the
+   reference test matrices and on every ResNet50 Table-I layer (and the
+   numpy oracle on the small cases), K1 also on its edge cases at the int16
+   extremes; K2 and K3 on the stacked buckets the port's scheduler builds
+   for the reference's ragged WS and OS job sets, and on the Table-I WS
+   bucket (3776 tasks over 720 strips) and OS stream bucket (496 strips),
+   K2 also on its edge buckets (every run layout, valid_r of 0, partial and
+   full, bad ids, operands at the int16 extremes); K5, K6
    and K7 at the shapes of the reference's ``tests/test_kernels.py``
    (integers exact, f32 attention within 1e-5), K5 also on misaligned
    bases, T = 2 and 3, 600,000 lanes and an int32 stream on every bus of
@@ -66,7 +68,7 @@ Phases (any mismatch exits non-zero; nothing is caught):
    toggle counters' bound is the largest of their bytes, their 32-bit
    integer ops and their popcounts at this card's rates, and names the
    binding term; K5 is summed apart over its 12 partial-sum streams and its
-   36 operand streams, and timed once more on K4's inputs beside K4.  The
+   36 operand streams.  The
    CUDA-core K6 and K7, off the main path since the tensor-core routes
    took it over, are timed in f32, their one type there, at the same
    full-width shapes (the Qwen3-8B MLP and both attention cases).
@@ -117,8 +119,9 @@ KERNELS = (
 TC_SASS = {"ws_gemm_tc_kernel": ("HGMMA", "IGMMA"), "flash_attention_tc_kernel": ("HGMMA",)}
 # The redesigned toggle counters (source, kernel): their SASS is counted for
 # popcounts, shuffles (none: registers blocked in time, REDUX sums) and
-# 16-byte global loads (K5's lane groups).
+# 16-byte global loads (K5's lane groups), and ptxas must report no spill.
 INT_SASS = (("activity_profile", "ws_activity_toggles_kernel"),
+            ("activity_batch", "ws_task_toggles_kernel"),
             ("toggle_count", "stream_toggles_kernel"))
 SASS_OPS = {"POPC": r"\bPOPC\b", "SHFL": r"\bSHFL\.", "LDG.E.128": r"\bLDG\.E(?:\.\w+)*\.128\b",
             "REDUX": r"\bREDUX\b"}
@@ -193,6 +196,17 @@ K1_EDGE_CASES = [
 # misaligns the base (lanes 1, 3, 5, 4097 walk one lane a thread, 4096 takes
 # the scalar head, the 16-byte groups and the tail), T = 2 and 3, and lanes
 # beyond the earlier design's grid stride.
+# K2 at its edges (some of tests/test_torch_cuda.py's K2 cases): runs of 16
+# (t_seg 16, 128) and of 8 (t_seg 8, 24), partial last runs (t_seg 1, 5,
+# 37), rows past one staged chunk, cols off the 32-column groups, b_v on
+# every high-word packing.
+K2_EDGE_CASES = [
+    # t_seg, rows, cols, b_v
+    (8, 32, 32, 37), (16, 32, 32, 37), (24, 32, 32, 37), (128, 32, 32, 37),
+    (1, 16, 8, 37), (5, 16, 40, 37), (37, 48, 64, 37), (64, 16, 40, 20),
+    (64, 32, 32, 32), (64, 32, 32, 33), (64, 32, 32, 40), (64, 32, 32, 48),
+    (64, 32, 32, 64),
+]
 K5_EDGE_CASES = [
     ((37, 1), 1), ((37, 3), 1), ((37, 5), 1), ((37, 4096), 1), ((37, 4097), 1),
     ((2, 1000), 0), ((3, 4096), 0), ((3, 7), 0), ((4, 600_000), 0),
@@ -357,6 +371,9 @@ def main() -> None:
                 kernel = found.group(1)
             elif "registers" in line or "spill" in line or "error" in line.lower():
                 print(f"  nvcc[{name}] {kernel[:80]}: {line.strip()}")
+                spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+                if spills and any((name, k) in INT_SASS for k in re.findall(r"[a-z_]+_kernel", kernel)):
+                    check(spills.groups() == ("0", "0"), f"{kernel} spills: {line.strip()}")
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     for source in ("ws_matmul", "flash_attention"):
         sass = subprocess.run([cuobjdump, "-sass", str(_build._target(source)[1])],
@@ -405,9 +422,14 @@ def main() -> None:
             check(got == windows == ref, f"K1 {what}: kernel {got} block_t=7 {windows} oracle {ref}")
 
     def check_k4(x, bits, what) -> int:
-        """K4 vs its plain version, whole and in 5-step windows."""
+        """K4 vs its plain version, whole and in 5-step windows; it launches
+        K5's kernel and counts on its own wrapper, not on K5's."""
         x_t = on_card(x)
+        before = (K.operand_stream_toggles.launches, TC.stream_toggles.launches)
         got = int(K.operand_stream_toggles(x_t, bits).item())
+        check((K.operand_stream_toggles.launches, TC.stream_toggles.launches)
+              == (before[0] + (x_t.shape[0] > 1), before[1]),
+              f"K4 {what}: launches counted on the wrong wrapper")
         plain = int(K.operand_stream_toggles_plain(x_t, bits).item())
         windows = int(K.operand_stream_toggles_plain(x_t, bits, block_t=5).item())
         note("operand_stream_toggles", [got], [plain])
@@ -420,12 +442,16 @@ def main() -> None:
         note("strip_toggles", got, plain)
         check(got == plain, f"K3 {what}: kernel and plain version differ")
 
-    def check_k2(arrays, b_v, what) -> None:
+    def check_k2(arrays, b_v, what, bad=()) -> None:
+        """K2 vs its plain version; the tasks ``bad`` (and no other) have an
+        out-of-range id and must read -1."""
         got = K.ws_task_toggles(*arrays, b_v).tolist()
         plain = K.ws_task_toggles_plain(*arrays, b_v).tolist()
         note("ws_task_toggles", got, plain)
         check(got == plain, f"K2 {what}: kernel and plain version differ")
-        check(min(got) >= 0, f"K2 {what}: a task flagged a bad index")
+        flagged = [i for i, x in enumerate(got) if x < 0]
+        check(flagged == list(bad) and all(got[i] == -1 for i in bad),
+              f"K2 {what}: tasks {flagged} flagged a bad index, expected {list(bad)}")
 
     def check_k5(x_t, bits, what) -> int:
         got = int(TC.stream_toggles(x_t, bits).item())
@@ -546,6 +572,22 @@ def main() -> None:
             ragged_jobs.append(
                 ProfileJob(rows=rows, cols=cols, b_h=b_h, b_v=b_v, a=a, w=w, dataflow=dataflow)
             )
+    for t_seg, rows, cols, b_v in K2_EDGE_CASES:
+        # 40 tasks over 7 strips and 5 tiles: task 0 has valid_r 0, task 1
+        # the full rows, task 2 half of them; tasks 3 and 4 a bad strip and
+        # a bad tile id
+        strips_np = np.where(rng.random((7, t_seg + 1, rows)) < 0.5,
+                             rng.choice(extremes, (7, t_seg + 1, rows)),
+                             rng.integers(-32768, 32768, size=(7, t_seg + 1, rows)))
+        tiles_np = np.where(rng.random((5, rows, cols)) < 0.5, rng.choice(extremes, (5, rows, cols)),
+                            rng.integers(-32768, 32768, size=(5, rows, cols)))
+        ids, wids, vr = rng.integers(0, 7, 40), rng.integers(0, 5, 40), rng.integers(0, rows + 1, 40)
+        vr[:3] = 0, rows, rows // 2
+        ids[3], wids[4] = 7, -1
+        arrays = tuple(on_card(x) for x in (strips_np, tiles_np, ids, wids, vr))
+        check_k2(arrays, b_v, f"edge bucket t_seg={t_seg} rows={rows} cols={cols} b_v={b_v}",
+                 bad=(3, 4))
+        check(K.ws_task_toggles(*arrays, b_v)[0].item() == 0, "K2: a task with valid_r 0 counts")
     ws_buckets, os_buckets = stacked(ragged_jobs)
     for b, arrays in ws_buckets:
         what = f"ragged bucket {b.rows}x{b.cols} b_h={b.b_h} b_v={b.b_v} t_seg={b.t_seg}"
@@ -946,7 +988,6 @@ def main() -> None:
           f"({POPC_PER_CLOCK_SM} x {sms} SMs x {clock_mhz:.0f} MHz)); a WS partial sum is one "
           f"multiply-add, one logic op per 32-bit word of its bus and bits / 32 popcounts, a bus "
           f"value the last two:")
-    k5_at_k4 = {"K4 ms": 0.0, "K5 ms": 0.0, "calls": 0}
     for name, a, w in operands:
         m, k = a.shape
         n = w.shape[1]
@@ -966,16 +1007,8 @@ def main() -> None:
             plain = median_ms(lambda: K.operand_stream_toggles_plain(x_t, OPERAND_BUS), calls=2, bursts=3)
             bound, by = toggle_bound_ms(4 * t_len * lanes + 8, 0, (t_len - 1) * lanes, OPERAND_BUS)
             add("operand_stream_toggles", ms, plain, bound, by)
-            # K5 on the same int32 stream and bus, for the K4 step (K4's
-            # wrapper launching K5's kernel); not a main-path launch.
-            ms5 = median_ms(lambda: TC.stream_toggles(x_t, OPERAND_BUS), calls=20)
-            k5_at_k4["K4 ms"] += ms
-            k5_at_k4["K5 ms"] += ms5
-            k5_at_k4["calls"] += 1
             print(f"  K4 {name} {what} stream {t_len}x{lanes}: {ms:.4f} ms, plain {plain:.4f} ms, "
-                  f"bound {bound:.6f} ms ({by}); K5 on it {ms5:.4f} ms")
-    print(f"  K5 at K4's shapes: {k5_at_k4['K5 ms']:.4f} ms over {k5_at_k4['calls']} streams, "
-          f"K4 {k5_at_k4['K4 ms']:.4f} ms")
+                  f"bound {bound:.6f} ms ({by})")
 
     # K2: the partial sums these tasks need, t_seg x valid_r x cols each
     # (time padding included: it is the kernel's input); K3: every value
@@ -1190,7 +1223,7 @@ def main() -> None:
             "src/repro/kernels/activity_profile/kernel.py:298",
         ),
         "operand_stream_toggles": (
-            "src/repro_torch/csrc/activity_profile.cu",
+            "src/repro_torch/csrc/toggle_count.cu",
             "src/repro/kernels/activity_profile/kernel.py:249",
         ),
         "stream_toggles": (
@@ -1238,8 +1271,6 @@ def main() -> None:
             # bytes, integer ops or popcounts (K1-K5); operations (K6, K7)
             "bound_term": term,
         }
-        if name == "operand_stream_toggles":
-            row["stream_toggles_on_its_inputs"] = k5_at_k4
         if name == "ws_gemm_tc":
             row["library_covers"] = ("int8 (torch._int_mm) and bf16 (torch.matmul) calls; "
                                      "PyTorch has no CUDA int16 GEMM")

@@ -1,11 +1,12 @@
-// Switching-activity toggle counters for Hopper (sm_90a), bound with ctypes.
+// The per-GEMM weight-stationary toggle counter for Hopper (sm_90a), bound
+// with ctypes.
 //
 // K1 ws_activity_toggles replaces activity_profile_pallas
 //    (src/repro/kernels/activity_profile/kernel.py): exact input-bus (h) and
 //    partial-sum-bus (v) toggle totals of a whole weight-stationary GEMM.
-// K4 operand_stream_toggles replaces operand_stream_toggles_pallas (same
-//    file): exact toggle total of a (T, L) bundle of independent operand
-//    lane streams, the whole per-GEMM work of the output-stationary dataflow.
+// K4, the per-GEMM output-stationary counter (operand_stream_toggles_pallas
+//    in the same file), computes K5's function on an int32 (T, L) stream, so
+//    its wrapper launches toggle_count.cu's stream_toggles.
 //
 // What bounds K1 on this card
 //   Every (t, r, c) partial sum S[t, r, c] = sum_{r' <= r} a[t, r'] w[r', c]
@@ -31,11 +32,12 @@
 //     kSteps transitions between neighbouring sums in registers: no shuffles,
 //     and the recomputed seed costs one multiply-add in kVals, where the
 //     warp-per-32-steps design spent a whole lane in 32 and a shuffle per sum.
-//   * Masked popcounts. The low word of a transition takes one popcount. On a
-//     bus wider than 32 bits, the high word's hb = b_v - 32 bits are masked
-//     and packed 32 / S to a word (field width S = 5, 8, 16 or 32, the
-//     smallest that holds hb) before one popcount: at b_v = 37, 15
-//     transitions take 15 + 3 popcounts instead of 30.
+//   * Masked popcounts (toggles.cuh, shared with K2). The low word of a
+//     transition takes one popcount. On a bus wider than 32 bits, the high
+//     word's hb = b_v - 32 bits are masked and packed 32 / S to a word
+//     (field width S = 5, 8, 16 or 32, the smallest that holds hb) before
+//     one popcount: at b_v = 37, 15 transitions take 15 + 3 popcounts
+//     instead of 30.
 //   * The h bus is counted once per (k tile, time run), from the staged rows,
 //     by the block of column group 0, and scaled by the n tiles.
 //   * Every loop is bounded by the true M, K and N: rows past M repeat row
@@ -45,16 +47,11 @@
 //     its totals into the output with two 64-bit atomics. The C entry zeroes
 //     the output on the stream, so the caller allocates it uninitialised.
 //
-// What bounds K4, and its design
-//   K4 reads each stream element once and does three operations on it, so
-//   it is bound by bytes: one thread per lane reads a column of a time
-//   chunk, neighbouring threads on neighbouring addresses.
-//
-// What the TPU kernels did that these designs drop
+// What the TPU kernel did that this design drops
 //   * The Pallas grid runs in order and carries the previous time block's
 //     last row in VMEM scratch. CUDA blocks run in any order, so every K1
-//     run and K4 block recomputes its seed row t0 - 1 itself. The first run
-//     seeds with t = 0, so its first transition counts zero.
+//     run recomputes its seed row t0 - 1 itself. The first run seeds with
+//     t = 0, so its first transition counts zero.
 //   * The lo/hi int32 planes stood in for 64-bit integers, which the TPU's
 //     vector unit lacks. Here the sums are native int64, and a toggle count
 //     takes the same bits as the numpy oracle's two's-complement bus
@@ -63,13 +60,15 @@
 //     sign, as on the reference.
 //   * Per-cell int32 partials become 64-bit atomics into int64 totals, so
 //     no partial has an overflow bound.
-//   * Edges: the kernels read the unpadded operands and bound every loop by
+//   * Edges: the kernel reads the unpadded operands and bounds every loop by
 //     the true extents, where the TPU kernel padded and masked.
 
 #include <climits>
 #include <cstdint>
 
 #include <cuda_runtime.h>
+
+#include "toggles.cuh"
 
 namespace {
 
@@ -79,18 +78,6 @@ constexpr int kSteps = 15;            // K1: transitions a thread counts (kernel
 constexpr int kVals = kSteps + 1;     // K1: its time rows, the seed row first
 constexpr int kWarps = 4;             // K1: warps per block
 constexpr int kRowChunk = 32;         // K1: reduction rows staged at a time
-constexpr int kStreamThreads = 256;   // K4: stream lanes per block
-constexpr int kStreamSteps = 64;      // K4: transitions per block
-
-__device__ __forceinline__ unsigned long long bus_mask(int bits) {
-  // 1ull << 64 is undefined, so the full bus is its own case.
-  return bits >= 64 ? ~0ull : ((1ull << bits) - 1ull);
-}
-
-__device__ __forceinline__ unsigned long long warp_sum(unsigned long long x) {
-  for (int off = kLanes / 2; off > 0; off >>= 1) x += __shfl_down_sync(kFull, x, off);
-  return x;
-}
 
 // K1's launch: the GEMM, its grid and its buses.
 struct WsPlan {
@@ -103,41 +90,6 @@ struct WsPlan {
   unsigned h_lo, h_hi_bits;   // the b_h mask's low word and its bits above 31
   unsigned long long n_tiles;
 };
-
-// Toggles of a sign-extended int32 XOR `d` on a bus of low-word mask `lo`
-// and `hi_bits` bits above bit 31 (all copies of bit 31).
-__device__ __forceinline__ unsigned bus32(int32_t d, unsigned lo, unsigned hi_bits) {
-  return __popc(static_cast<unsigned>(d) & lo) + (d < 0 ? hi_bits : 0u);
-}
-
-// The toggles of the kSteps transitions between neighbouring partial sums
-// s[j - 1] -> s[j]. S is the field width of the packed high words: 0 when
-// the bus has none (b_v <= 32), else 32 / S masked high words share one
-// popcount; a field's high word is below 2^S, so fields never overlap and
-// adding them is OR-ing them.
-template <int S>
-__device__ __forceinline__ unsigned transitions(const long long (&s)[kVals], unsigned lo_mask,
-                                                unsigned hi_mask) {
-  constexpr int kFields = S ? 32 / S : 1;
-  constexpr int kWords = (kSteps + kFields - 1) / kFields;
-  unsigned cnt = 0;
-  unsigned packed[kWords] = {};
-#pragma unroll
-  for (int j = 1; j < kVals; ++j) {
-    const unsigned lo = static_cast<unsigned>(s[j]) ^ static_cast<unsigned>(s[j - 1]);
-    cnt += __popc(lo & lo_mask);
-    if constexpr (S > 0) {
-      const unsigned hi =
-          (static_cast<unsigned>(s[j] >> 32) ^ static_cast<unsigned>(s[j - 1] >> 32)) & hi_mask;
-      packed[(j - 1) / kFields] += hi << ((j - 1) % kFields * S);
-    }
-  }
-  if constexpr (S > 0) {
-#pragma unroll
-    for (int i = 0; i < kWords; ++i) cnt += __popc(packed[i]);
-  }
-  return cnt;
-}
 
 // One block per (k tile, column block, run block); see the note at the top.
 // Warp w owns column group w % cw of the block and run w / cw of it.
@@ -196,7 +148,7 @@ ws_activity_toggles_kernel(const int32_t* __restrict__ a, const int32_t* __restr
       for (int e = lane; e < nr * kVals; e += kLanes) {
         const int j = e % kVals;
         const int32_t* row = at + ((e / kVals) * rw + g) * kVals;
-        if (j > 0) h += bus32(row[j] ^ row[j - 1], p.h_lo, p.h_hi_bits);
+        if (j > 0) h += toggles::bus32(row[j] ^ row[j - 1], p.h_lo, p.h_hi_bits);
       }
     }
     unsigned v = 0;
@@ -215,7 +167,7 @@ ws_activity_toggles_kernel(const int32_t* __restrict__ a, const int32_t* __restr
         }
 #pragma unroll
         for (int j = 0; j < kVals; ++j) s[j] += static_cast<long long>(av[j]) * static_cast<long long>(wv);
-        v += transitions<S>(s, p.v_lo, p.v_hi);
+        v += toggles::transitions<S>(s, p.v_lo, p.v_hi);
       }
     }
     // a chunk's counts are at most kRowChunk * kSteps * 64 a thread (2^20 a
@@ -242,48 +194,13 @@ ws_activity_toggles_kernel(const int32_t* __restrict__ a, const int32_t* __restr
   }
 }
 
-// One block per (time chunk, group of kStreamThreads lanes); each thread
-// walks one lane from its seed row t0 - 1 to the end of the chunk.
-__global__ void __launch_bounds__(kStreamThreads)
-operand_stream_toggles_kernel(const int32_t* __restrict__ x, unsigned long long* __restrict__ out,
-                              int t_len, int lanes, int bits, int lane_groups) {
-  const long long bid = blockIdx.x;
-  const int group = static_cast<int>(bid % lane_groups);
-  const int chunk = static_cast<int>(bid / lane_groups);
-  const int l = group * kStreamThreads + threadIdx.x;
-
-  unsigned long long cnt = 0;
-  if (l < lanes) {
-    const unsigned long long mask = bus_mask(bits);
-    const int t0 = chunk * kStreamSteps + 1;
-    const int t1 = min(t0 + kStreamSteps, t_len);
-    long long prev = x[static_cast<long long>(t0 - 1) * lanes + l];
-    for (int t = t0; t < t1; ++t) {
-      const long long cur = x[static_cast<long long>(t) * lanes + l];
-      cnt += __popcll(static_cast<unsigned long long>(cur ^ prev) & mask);
-      prev = cur;
-    }
-  }
-
-  __shared__ unsigned long long part[kStreamThreads / kLanes];
-  cnt = warp_sum(cnt);
-  if (threadIdx.x % kLanes == 0) part[threadIdx.x / kLanes] = cnt;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    unsigned long long total = 0;
-    for (int i = 0; i < kStreamThreads / kLanes; ++i) total += part[i];
-    if (total) atomicAdd(out, total);
-  }
-}
-
 }  // namespace
 
-// C entry points. Pointers are device pointers; `out` receives int64
-// totals. Each returns the first CUDA error of its launch
+// C entry point. Pointers are device pointers; `out` receives the two
+// int64 totals (h, v) and is zeroed here, on the stream, before the launch.
+// Returns the first CUDA error of the zeroing and the launch
 // (cudaErrorInvalidValue for a grid it cannot launch), so a refused launch
-// is reported to the caller. Neither synchronises.
-
-// `out` (two int64: h, v) is zeroed here, on the stream, before the launch.
+// is reported to the caller. Does not synchronise.
 extern "C" int ws_activity_toggles(const void* a, const void* w, void* out, int m, int k,
                                    int n, int rows, int cols, int b_h, int b_v,
                                    void* stream) {
@@ -333,20 +250,5 @@ extern "C" int ws_activity_toggles(const void* a, const void* w, void* out, int 
   } else {
     launch(ws_activity_toggles_kernel<32>);
   }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// `out` (one int64) is zeroed by the caller.
-extern "C" int operand_stream_toggles(const void* x, void* out, int t_len, int lanes, int bits,
-                                      void* stream) {
-  if (t_len < 2 || lanes < 1) return cudaErrorInvalidValue;
-  const int lane_groups = (lanes + kStreamThreads - 1) / kStreamThreads;
-  const int t_chunks = (t_len - 2) / kStreamSteps + 1;  // ceil((t_len - 1) / kStreamSteps)
-  const long long blocks = static_cast<long long>(t_chunks) * lane_groups;
-  if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  operand_stream_toggles_kernel<<<static_cast<unsigned>(blocks), kStreamThreads, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(x), static_cast<unsigned long long*>(out), t_len, lanes, bits,
-      lane_groups);
   return static_cast<int>(cudaGetLastError());
 }

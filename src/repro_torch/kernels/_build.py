@@ -38,8 +38,6 @@ SOURCES: dict[str, dict[str, tuple[list, type]]] = {
     "activity_profile": {
         # a, w, out, m, k, n, rows, cols, b_h, b_v, stream
         "ws_activity_toggles": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
-        # x, out, t_len, lanes, bits, stream
-        "operand_stream_toggles": ([_P, _P, _I, _I, _I, _P], _I),
     },
     "activity_batch": {
         # strips, w_tiles, strip_ids, w_ids, valid_r, out,

@@ -1,15 +1,17 @@
 """Toggle-counting kernels of the activity profiler and their plain versions.
 
-Four kernels, written for Hopper.  Two per-GEMM kernels in
-``csrc/activity_profile.cu``:
+Four kernels, written for Hopper.  Two per-GEMM kernels:
 
-  * K1 ``ws_activity_toggles`` replaces ``activity_profile_pallas``
+  * K1 ``ws_activity_toggles`` (``csrc/activity_profile.cu``) replaces
+    ``activity_profile_pallas``
     (``src/repro/kernels/activity_profile/kernel.py``): exact (h, v) toggle
     totals of a whole weight-stationary GEMM.
   * K4 ``operand_stream_toggles`` replaces ``operand_stream_toggles_pallas``
     (same file): the exact toggle total of a (T, L) bundle of independent
     operand lane streams, the per-GEMM work of the output-stationary
-    dataflow.
+    dataflow.  That is K5's function on an int32 stream, so its wrapper
+    launches K5's kernel (``csrc/toggle_count.cu`` ``stream_toggles``) and
+    keeps a count of its own.
 
 and two batched kernels of the profiling pipeline in
 ``csrc/activity_batch.cu``, over the stacked seeded windows of
@@ -44,6 +46,8 @@ __all__ = [
     "MIN_BLOCK_T",
     "TASK_CHUNK_BUDGET",
     "WS_KERNEL_STEPS",
+    "WS_TASK_SHORT_STEPS",
+    "WS_TASK_STEPS",
     "choose_block_t",
     "choose_task_chunk",
     "ws_task_toggles",
@@ -63,6 +67,13 @@ PLAIN_BLOCK_ELEMENTS = 1 << 22
 # (``kSteps`` in ``csrc/activity_profile.cu``); the plain version with
 # ``block_t=WS_KERNEL_STEPS`` cuts time as the kernel does.
 WS_KERNEL_STEPS = 15
+
+# Time transitions each K2 thread counts from its recomputed seed row
+# (``kLongRun`` / ``kShortRun`` in ``csrc/activity_batch.cu``): runs of 16,
+# or of 8 where t_seg % 16 is 1 to 8; the plain version with ``run_t`` set
+# to the same cuts time as the kernel does.
+WS_TASK_STEPS = 16
+WS_TASK_SHORT_STEPS = 8
 
 # The reference engine's time-block budget: block_t * rows * cols plane
 # elements.  Not a limit of the kernels here; the batched pipeline's shape
@@ -216,18 +227,22 @@ def operand_stream_toggles_plain(
 def operand_stream_toggles(x: torch.Tensor, bits: int) -> torch.Tensor:
     """K4: exact toggle total of the (T, L) int32 lane streams ``x`` on a
     ``bits``-wide two's-complement bus, as a (1,) int64 tensor on ``x``'s
-    device.  Lane l carries x[:, l]; lanes never mix."""
+    device.  Lane l carries x[:, l]; lanes never mix.
+
+    On the card this launches K5's kernel (``stream_toggles`` of
+    ``csrc/toggle_count.cu``) and counts the launch here, not on K5's
+    wrapper."""
     _check_operand(x, "x", x.device)
     _check_bits(bits)
     if on_cpu(x, "operand_stream_toggles"):
         return operand_stream_toggles_plain(x, bits)
     t, lanes = x.shape
-    out = torch.zeros(1, dtype=torch.int64, device=x.device)
     if t < 2 or lanes == 0:
-        return out
+        return torch.zeros(1, dtype=torch.int64, device=x.device)
+    out = torch.empty(1, dtype=torch.int64, device=x.device)  # the C entry zeroes it
     launch(
-        "activity_profile", "operand_stream_toggles", x.device,
-        x.data_ptr(), out.data_ptr(), t, lanes, bits,
+        "toggle_count", "stream_toggles", x.device,
+        x.data_ptr(), out.data_ptr(), t, lanes, x.element_size(), bus_mask(bits) & (2**64 - 1),
     )
     operand_stream_toggles.launches += 1
     return out
@@ -245,14 +260,17 @@ def ws_task_toggles_plain(
     b_v: int,
     *,
     task_chunk: int | None = None,
+    run_t: int | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of K2: (P,) int64 vertical-bus toggles per task.
 
     Walks the tasks ``task_chunk`` at a time (default ``choose_task_chunk``)
     and, within a chunk, the reduction rows, carrying the (chunk, t_seg + 1,
     cols) int64 partial-sum planes as the reference's task kernel does; row
-    r counts only for tasks with r < valid_r.  A task whose ids are out of
-    range gets -1, as on the kernel.
+    r counts only for tasks with r < valid_r.  ``run_t`` cuts each task's
+    t_seg transitions into runs of that many, each carrying its own planes
+    from its recomputed seed row, as the kernel's threads do (default: one
+    run).  A task whose ids are out of range gets -1, as on the kernel.
     """
     num_tasks = strip_ids.shape[0]
     num_strips, t1, rows = strips.shape
@@ -268,6 +286,8 @@ def ws_task_toggles_plain(
     vr = torch.where(ok, valid_r.to(torch.int64).clamp(0, rows), 0)
     if task_chunk is None:
         task_chunk = choose_task_chunk(num_tasks, t1, cols, strips.device.type)
+    if run_t is None:
+        run_t = t1 - 1
     mask = bus_mask(b_v)
     for p0 in range(0, num_tasks, task_chunk):
         sl = slice(p0, p0 + task_chunk)
@@ -275,13 +295,15 @@ def ws_task_toggles_plain(
         depth = int(vr_c.max())  # rows past every task's valid_r count nothing
         if depth == 0:
             continue
-        a = strips[sid[sl]].to(torch.int64)  # (chunk, t1, rows)
         w = w_tiles[wid[sl]].to(torch.int64)  # (chunk, rows, cols)
-        s = torch.zeros((a.shape[0], t1, cols), dtype=torch.int64, device=strips.device)
-        for r in range(depth):
-            s += a[:, :, r, None] * w[:, None, r, :]
-            cnt = popcount64((s[:, 1:] ^ s[:, :-1]) & mask).sum(dim=(1, 2))
-            out[sl] += torch.where(r < vr_c, cnt, 0)
+        for t0 in range(1, t1, run_t):
+            # (chunk, run_t + 1, rows): the run's seed row t0 - 1 and its steps
+            a = strips[sid[sl], t0 - 1 : t0 + run_t].to(torch.int64)
+            s = torch.zeros((a.shape[0], a.shape[1], cols), dtype=torch.int64, device=strips.device)
+            for r in range(depth):
+                s += a[:, :, r, None] * w[:, None, r, :]
+                cnt = popcount64((s[:, 1:] ^ s[:, :-1]) & mask).sum(dim=(1, 2))
+                out[sl] += torch.where(r < vr_c, cnt, 0)
     return torch.where(ok, out, -1)
 
 
@@ -321,7 +343,7 @@ def ws_task_toggles(
     if on_cpu(strips, "ws_task_toggles"):
         return ws_task_toggles_plain(strips, w_tiles, strip_ids, w_ids, valid_r, b_v)
     num_tasks = strip_ids.shape[0]
-    out = torch.empty(num_tasks, dtype=torch.int64, device=device)
+    out = torch.empty(num_tasks, dtype=torch.int64, device=device)  # the C entry zeroes it
     if num_tasks == 0:
         return out
     num_strips, t1, rows = strips.shape

@@ -1,8 +1,8 @@
 """The CUDA kernels on the card: each against its plain PyTorch version and
 the numpy oracle, and ``backend="auto"`` resolving to them, per GEMM (K1,
-K4) and through the batched pipeline (K2, K3); and the kernel library's
-entry points (K5 stream toggles, K6 GEMM, K7 attention) against their
-plain versions.
+K4, whose wrapper launches K5's kernel) and through the batched pipeline
+(K2, K3); and the kernel library's entry points (K5 stream toggles, K6
+GEMM, K7 attention) against their plain versions.
 
 Marked ``cuda``: every test skips, with its reason, where no CUDA device is
 available.  On a machine with one:
@@ -171,6 +171,91 @@ def test_task_and_strip_kernels_match_plain(card, rows, cols, b_h, b_v):
     assert v.tolist() == plain_v.tolist()
     assert v[-2] == 0 and v[-1] == -1  # dummy task, bad strip id
     assert h.tolist() == K.strip_toggles_plain(strips, b_h).tolist()
+
+
+# K2 at its edges: every run layout of the kernel (runs of 16 at t_seg 16,
+# 32, 64 and 128; runs of 8 at t_seg 8 and 24; partial last runs at t_seg
+# 1, 5 and 37), rows past one staged chunk of 32, cols off the 32-column
+# groups, b_v on every high-word packing (none, 6, 2 and 1 fields to a
+# popcount; 40 bits pack as 48 do).
+K2_T_SEGS = [1, 5, 8, 16, 24, 32, 37, 64, 128]
+K2_GEOMETRIES = [(rows, cols) for rows in (16, 32, 48) for cols in (8, 32, 40, 64)]
+K2_BUS_WIDTHS = [20, 32, 33, 37, 40, 48, 64]
+
+
+def _k2_edge_bucket(card, t_seg, rows, cols, tasks=40):
+    """A bucket of ``tasks`` tasks over 7 strips and 5 tiles, operands half
+    at the int16 extremes: task 0 has valid_r 0, task 1 the full rows, task
+    2 half of them, the rest any; tasks 3 and 4 a bad strip and a bad tile
+    id."""
+    rng = np.random.default_rng([t_seg, rows, cols, tasks])
+    extremes = np.array([-32768, -32767, 32767])
+
+    def operand(shape):
+        return np.where(rng.random(shape) < 0.5, rng.choice(extremes, shape),
+                        rng.integers(-32768, 32768, size=shape))
+
+    ids, wids = rng.integers(0, 7, tasks), rng.integers(0, 5, tasks)
+    vr = rng.integers(0, rows + 1, tasks)
+    vr[:3] = 0, rows, rows // 2
+    ids[3], wids[4] = 7, -1
+    arrays = (operand((7, t_seg + 1, rows)), operand((5, rows, cols)), ids, wids, vr)
+    return tuple(torch.from_numpy(x.astype(np.int32)).to(card) for x in arrays)
+
+
+def _check_k2(arrays, b_v):
+    """K2 twice (its output is uninitialised: the C entry zeroes it) against
+    its plain version: 0 for valid_r 0, -1 for exactly the bad ids."""
+    before = K.ws_task_toggles.launches
+    got = [K.ws_task_toggles(*arrays, b_v).tolist() for _ in range(2)]
+    torch.cuda.synchronize()
+    assert K.ws_task_toggles.launches == before + 2
+    want = K.ws_task_toggles_plain(*arrays, b_v).tolist()
+    assert got[0] == got[1] == want
+    assert want[0] == 0 and want[3] == want[4] == -1
+    assert min(want[:3] + want[5:]) >= 0 and want[1] > 0
+
+
+@pytest.mark.parametrize("t_seg", K2_T_SEGS)
+def test_task_kernel_time_runs(card, t_seg):
+    _check_k2(_k2_edge_bucket(card, t_seg, 32, 32), 37)
+
+
+@pytest.mark.parametrize("rows,cols", K2_GEOMETRIES)
+def test_task_kernel_geometries(card, rows, cols):
+    for t_seg in (8, 128):
+        _check_k2(_k2_edge_bucket(card, t_seg, rows, cols), 37)
+
+
+@pytest.mark.parametrize("b_v", K2_BUS_WIDTHS)
+def test_task_kernel_bus_widths(card, b_v):
+    for t_seg in (8, 24, 128):
+        _check_k2(_k2_edge_bucket(card, t_seg, 32, 40), b_v)
+
+
+def test_task_kernel_spans_many_blocks(card):
+    """3000 tasks at t_seg 128 on 40 columns: 16 items (4 blocks) a task,
+    their totals added with atomics."""
+    _check_k2(_k2_edge_bucket(card, 128, 32, 40, tasks=3000), 37)
+
+
+@pytest.mark.parametrize("lanes", [1, 3, 4097])
+@pytest.mark.parametrize("bits", [1, 16, 33, 64])
+def test_os_stream_kernel_runs_on_stream_toggles(card, lanes, bits):
+    """K4 launches K5's kernel and counts on its own wrapper: at T = 2, and
+    at T = 37 on a view whose base is not 16-byte aligned."""
+    rng = np.random.default_rng([lanes, bits])
+    for t, offset in ((2, 0), (37, 1)):
+        flat = rng.integers(-(2**31), 2**31, size=t * lanes + offset).astype(np.int32)
+        x = torch.from_numpy(flat).to(card)[offset:].view(t, lanes)
+        assert x.is_contiguous() and (x.data_ptr() % 16 != 0) == (offset > 0)
+        before = (K.operand_stream_toggles.launches, TC.stream_toggles.launches)
+        got = K.operand_stream_toggles(x, bits)
+        torch.cuda.synchronize()
+        assert (K.operand_stream_toggles.launches, TC.stream_toggles.launches) == (
+            before[0] + 1, before[1])
+        assert got.tolist() == K.operand_stream_toggles_plain(x, bits).tolist()
+        assert got.tolist() == TC.stream_toggles_plain(x, bits).tolist()
 
 
 def test_batched_pipeline_on_the_card_matches_the_oracle():

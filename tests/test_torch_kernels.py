@@ -1,6 +1,8 @@
 """Parity copy of the kernel-library cases of ``tests/test_kernels.py`` on
 the port's CPU path, plus the int32 accumulator wrap and the Table-I
-operand-stream recount.
+operand-stream recount, and the arithmetic of the toggle counters' CUDA
+designs: K4 on K5's function, K1's and K2's packed high-word popcounts, and
+K2's time runs against the reference's Pallas task kernel.
 
 The port's entry points run with ``engine="torch"``: the plain PyTorch
 versions of kernels K5 (toggle counting), K6 (the weight-stationary GEMM)
@@ -29,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.activity_profile.kernel import activity_profile_pallas_tasks
 from repro.kernels.flash_attention.ops import flash_attention as ref_flash_attention
 from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref
 from repro.kernels.toggle_count.ops import stream_activity as ref_stream_activity
@@ -37,6 +40,8 @@ from repro.kernels.toggle_count.ops import (
     stream_toggle_count_i64 as ref_stream_toggle_count_i64,
 )
 from repro.kernels.ws_matmul.ops import ws_matmul as ref_ws_matmul
+from repro_torch.core import pipeline
+from repro_torch.core.pipeline import BatchStats, ProfileJob
 from repro_torch.core.switching import stream_toggle_rate
 from repro_torch.core.workloads import RESNET50_TABLE1, conv_layer_job
 from repro_torch.kernels._engine import CudaUnavailableError
@@ -199,16 +204,18 @@ def test_k4_and_k5_plain_versions_agree_on_int32_streams(shape):
         assert k4 == AK.operand_stream_toggles_plain(x, bits, block_t=4).tolist(), bits
 
 
-def _packed_transition_toggles(d: torch.Tensor, bits: int) -> int:
-    """A CPU rendering of K1's masked popcount (``transitions<S>`` in
-    ``csrc/activity_profile.cu``) over rows of ``AK.WS_KERNEL_STEPS``
-    transition XORs ``d`` (int64) on a ``bits``-wide bus, 32 < bits <= 64:
-    one popcount of each low word, and the masked high words packed 32 // S
-    to a word, S the smallest of 5, 8, 16 and 32 that holds bits - 32."""
-    steps = AK.WS_KERNEL_STEPS
-    assert d.shape[-1] == steps and 32 < bits <= 64
+def _packed_transition_toggles(d: torch.Tensor, bits: int, widths=(5, 8, 16, 32)) -> int:
+    """A CPU rendering of the masked popcount of K1 and K2
+    (``transitions<S>`` in ``csrc/toggles.cuh``) over rows of transition
+    XORs ``d`` (int64), one row a thread's run (``AK.WS_KERNEL_STEPS`` for
+    K1, ``AK.WS_TASK_STEPS`` or ``AK.WS_TASK_SHORT_STEPS`` for K2), on a
+    ``bits``-wide bus, 32 < bits <= 64: one popcount of each low word, and
+    the masked high words packed 32 // S to a word, S the smallest of
+    ``widths`` that holds bits - 32 (K2 takes no S = 8)."""
+    steps = d.shape[-1]
+    assert 32 < bits <= 64
     hb = bits - 32
-    width = next(s for s in (5, 8, 16, 32) if hb <= s)
+    width = next(s for s in widths if hb <= s)
     fields = 32 // width
     hi = (d >> 32) & bus_mask(hb)
     words = torch.zeros(d.shape[:-1] + (-(-steps // fields),), dtype=torch.int64)
@@ -224,6 +231,62 @@ def test_k1_packed_high_words_count_every_bit(bits):
     d = torch.from_numpy(rng.integers(-(2**63), 2**63, size=(64, AK.WS_KERNEL_STEPS), dtype=np.int64))
     d[0] = -1  # every bit set
     assert _packed_transition_toggles(d, bits) == int(popcount64(d & bus_mask(bits)).sum())
+
+
+@pytest.mark.parametrize("steps", [AK.WS_TASK_STEPS, AK.WS_TASK_SHORT_STEPS])
+@pytest.mark.parametrize("bits", range(33, 65))
+def test_k2_packed_high_words_count_every_bit(bits, steps):
+    rng = np.random.default_rng([bits, steps])
+    d = torch.from_numpy(rng.integers(-(2**63), 2**63, size=(64, steps), dtype=np.int64))
+    d[0] = -1  # every bit set
+    got = _packed_transition_toggles(d, bits, widths=(5, 16, 32))
+    assert got == int(popcount64(d & bus_mask(bits)).sum())
+
+
+_TASK_REFERENCE: dict = {}
+
+
+def _task_bucket(t_seg: int):
+    """A stacked WS bucket as the port's scheduler builds it, cut to
+    ``t_seg`` steps a strip (16x8 array, b_v 37; K = 37 leaves K-padding
+    rows), with a dummy task (valid_r 0) appended, and the reference's
+    Pallas task kernel's counts on it, computed once per ``t_seg``."""
+    if t_seg not in _TASK_REFERENCE:
+        bucket_map, buckets, pass_map, stats = {}, [], {}, BatchStats()
+        rng = np.random.default_rng(t_seg)
+        for m, k, n in ((100, 37, 9), (70, 16, 13)):
+            a = rng.integers(-32767, 32768, size=(m, k))
+            w = rng.integers(-32767, 32768, size=(k, n))
+            job = ProfileJob(rows=16, cols=8, b_h=16, b_v=37, a=a, w=w)
+            pipeline._schedule_job(job, a, w, t_seg, bucket_map, buckets, pass_map, stats)
+        (b,) = buckets
+        assert b.t_seg == t_seg
+        arrays = (
+            np.stack(b.strips),
+            np.stack(b.w_tiles),
+            np.asarray(b.strip_ids + [0], np.int32),
+            np.asarray(b.w_ids + [0], np.int32),
+            np.asarray(b.valid_r + [0], np.int32),
+        )
+        want = np.asarray(
+            activity_profile_pallas_tasks(*arrays, rows=16, cols=8, b_v=37, interpret=True)
+        ).astype(np.int64)
+        _TASK_REFERENCE[t_seg] = arrays, want.tolist()
+    return _TASK_REFERENCE[t_seg]
+
+
+@pytest.mark.parametrize("run_t", [8, 15, 16])
+@pytest.mark.parametrize("t_seg", [8, 16, 128])
+def test_k2_plain_in_time_runs_matches_reference_tasks(t_seg, run_t):
+    """K2's plain version cut into runs of ``run_t`` transitions, each from
+    its recomputed seed row (the kernel's threads: runs of 16 or 8; K1's
+    15 for a run that does not divide t_seg), counts as the reference's
+    Pallas task kernel does, task for task."""
+    arrays, want = _task_bucket(t_seg)
+    t = [torch.from_numpy(x) for x in arrays]
+    assert want[-1] == 0 and (arrays[4][:-1] < 16).any()
+    assert AK.ws_task_toggles_plain(*t, 37, run_t=run_t).tolist() == want
+    assert AK.ws_task_toggles_plain(*t, 37, run_t=run_t, task_chunk=5).tolist() == want
 
 
 def test_table1_operand_streams_recount_the_reference():

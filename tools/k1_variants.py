@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
-"""Build variants of K1 (``ws_activity_toggles``) and time them on a CUDA card.
+"""Build variants of K1 (``ws_activity_toggles``) and K2 (``ws_task_toggles``)
+and time them on a CUDA card.
 
     python3 tools/k1_variants.py [--sass PATH]
 
-Each variant is ``csrc/activity_profile.cu`` with a few constants edited
-(run length kSteps, warps per block kWarps, the high-word packing at
-b_v = 37), built with the port's ``nvcc`` flags into
-``build/k1_variants/``.  Every variant must give the plain version's
-counts on the six ResNet50 Table-I layers (32x32 array, b_h 16, b_v 37);
-each is then timed there with CUDA events (median of 5 bursts of 20 calls,
-after a warm-up), twice in turn.  ptxas's register and spill lines are
-printed per variant; ``--sass PATH`` writes the unedited source's SASS
-(``cuobjdump -sass``) to PATH.
+Each variant is ``csrc/activity_profile.cu`` (K1) or ``csrc/activity_batch.cu``
+(K2) with a few constants edited (run length, warps per block, the high-word
+packing at b_v = 37, K2's launch bound), built with the port's ``nvcc``
+flags into ``build/k1_variants/``.  Every variant must give the plain
+version's counts on the ResNet50 Table-I inputs (32x32 array, b_h 16, b_v
+37): K1 on the six layers, K2 on the batched path's WS bucket (3776 tasks,
+t_seg 128).  Each is then timed there with CUDA events (median of 5 bursts
+of 20 calls, after a warm-up), twice in turn.  ptxas's register and spill
+lines are printed per variant; ``--sass PATH`` writes the unedited K1
+source's SASS (``cuobjdump -sass``) to PATH.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 # name -> (old, new) edits of csrc/activity_profile.cu
-VARIANTS = {
+K1_VARIANTS = {
     "as built": [],
     "runs of 7": [("constexpr int kSteps = 15;", "constexpr int kSteps = 7;")],
     "runs of 31": [("constexpr int kSteps = 15;", "constexpr int kSteps = 31;")],
@@ -36,6 +38,43 @@ VARIANTS = {
     "no high-word packing": [("launch(ws_activity_toggles_kernel<5>);",
                               "launch(ws_activity_toggles_kernel<32>);")],
 }
+# name -> (old, new) edits of csrc/activity_batch.cu; the Table-I bucket
+# (t_seg 128) takes the long runs
+K2_ALL_LONG = ("const bool short_runs = steps % kLongRun != 0 && steps % kLongRun <= kShortRun;",
+               "const bool short_runs = false;")
+K2_VARIANTS = {
+    "as built (runs of 16)": [],
+    "runs of 8": [("constexpr int kLongRun = 16;", "constexpr int kLongRun = 8;")],
+    "runs of 15": [("constexpr int kLongRun = 16;", "constexpr int kLongRun = 15;"), K2_ALL_LONG],
+    "runs of 16, no 64-register bound": [("__launch_bounds__(kLanes * kTaskWarps, 8)",
+                                          "__launch_bounds__(kLanes * kTaskWarps)")],
+}
+KERNELS = {
+    # kernel: (source, entry, variants)
+    "K1": ("activity_profile", "ws_activity_toggles", K1_VARIANTS),
+    "K2": ("activity_batch", "ws_task_toggles", K2_VARIANTS),
+}
+
+
+def table1_ws_bucket(dev):
+    """The stacked arrays of the batched path's one Table-I WS bucket (as
+    ``run_profile_batch`` builds it), on ``dev``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import pipeline
+    from repro_torch.core.pipeline import BatchStats
+    from repro_torch.core.workloads import RESNET50_TABLE1, conv_layer_job
+
+    jobs = [conv_layer_job(layer, seed=i) for i, layer in enumerate(RESNET50_TABLE1)]
+    t_trim = max(-(-job.gemm_shape()[0] // 8) * 8 for job in jobs)
+    bucket_map, buckets, pass_map, stats = {}, [], {}, BatchStats()
+    for job in jobs:
+        a, w = job.operands()
+        pipeline._schedule_job(job, a, w, t_trim, bucket_map, buckets, pass_map, stats)
+    (b,) = buckets
+    return tuple(torch.from_numpy(np.ascontiguousarray(np.asarray(x), dtype=np.int32)).to(dev)
+                 for x in (np.stack(b.strips), np.stack(b.w_tiles), b.strip_ids, b.w_ids, b.valid_r))
 
 
 def main() -> None:
@@ -43,7 +82,7 @@ def main() -> None:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--sass", type=Path, help="write the unedited source's SASS here")
+    parser.add_argument("--sass", type=Path, help="write the unedited K1 source's SASS here")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("tools/k1_variants.py: needs a CUDA card")
@@ -54,57 +93,79 @@ def main() -> None:
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
-    source = (_build.CSRC / "activity_profile.cu").read_text()
     out_dir = ROOT / "build" / "k1_variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, edits in VARIANTS.items():
-        text = source
-        for old, new in edits:
-            if text.count(old) != 1:
-                sys.exit(f"variant {name!r}: {old!r} is not in the source once")
-            text = text.replace(old, new)
-        stem = re.sub(r"\W+", "_", name)
-        (out_dir / f"{stem}.cu").write_text(text)
-        lib = out_dir / f"{stem}.so"
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(out_dir / f"{stem}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), lib)
+    for kernel, (source_name, entry, variants) in KERNELS.items():
+        source = (_build.CSRC / f"{source_name}.cu").read_text()
+        for name, edits in variants.items():
+            text = source
+            for old, new in edits:
+                if text.count(old) != 1:
+                    sys.exit(f"{kernel} variant {name!r}: {old!r} is not in the source once")
+                text = text.replace(old, new)
+            stem = f"{kernel}_" + re.sub(r"\W+", "_", name)
+            (out_dir / f"{stem}.cu").write_text(text)
+            lib = out_dir / f"{stem}.so"
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(lib),
+                   str(out_dir / f"{stem}.cu")]
+            procs[kernel, name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                    stderr=subprocess.STDOUT, text=True), lib)
     libs = {}
-    for name, (proc, lib) in procs.items():
+    for (kernel, name), (proc, lib) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            sys.exit(f"variant {name!r} did not build:\n{log}")
-        regs = sorted({line.split("Used")[1].split(",")[0].strip()
-                       for line in log.splitlines() if "ws_activity" not in line and "Used" in line})
-        spills = sorted({line.strip() for line in log.splitlines() if "spill stores" in line})
-        print(f"{name}: {', '.join(regs)}; {' / '.join(spills)}")
+            sys.exit(f"{kernel} variant {name!r} did not build:\n{log}")
+        source_name, entry, _ = KERNELS[kernel]
+        # ptxas reports each entry function: its stack and spills, then its registers
+        regs, spills, current = [], [], ""
+        for line in log.splitlines():
+            found = re.search(r"Compiling entry function '(\S+)'", line)
+            if found:
+                current = found.group(1)
+            elif f"{entry}_kernel" in current and "Used" in line:
+                regs.append(line.split("Used")[1].split(",")[0].strip())
+            elif f"{entry}_kernel" in current and "spill stores" in line:
+                spills.append(line.strip())
+        print(f"{kernel} {name}: {', '.join(sorted(set(regs)))}; {' / '.join(sorted(set(spills)))}")
         handle = ctypes.CDLL(str(lib))
-        handle.ws_activity_toggles.argtypes = _build.SOURCES["activity_profile"]["ws_activity_toggles"][0]
-        handle.ws_activity_toggles.restype = ctypes.c_int
-        libs[name] = handle
+        fn = getattr(handle, entry)
+        fn.argtypes, fn.restype = _build.SOURCES[source_name][entry]
+        libs[kernel, name] = fn
     if opts.sass:
         cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
         opts.sass.parent.mkdir(parents=True, exist_ok=True)
-        opts.sass.write_text(subprocess.run([cuobjdump, "-sass", str(procs["as built"][1])],
+        opts.sass.write_text(subprocess.run([cuobjdump, "-sass", str(procs["K1", "as built"][1])],
                                             capture_output=True, text=True, check=True).stdout)
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    layers = []
+    stream = torch._C._cuda_getCurrentRawStream(0)
+    # (kernel, input name, callable that launches a variant, the plain version's counts)
+    cases = []
+    k1_out = torch.empty(2, dtype=torch.int64, device=dev)
     for i, layer in enumerate(RESNET50_TABLE1):
         a, w = conv_layer_job(layer, seed=i).operands()
         a_t = torch.from_numpy(a.astype(np.int32)).to(dev)
         w_t = torch.from_numpy(w.astype(np.int32)).to(dev)
-        layers.append((layer.name, a_t, w_t, K.ws_activity_toggles_plain(a_t, w_t, 32, 32, 16, 37).tolist()))
-    out = torch.empty(2, dtype=torch.int64, device=dev)
 
-    def run(handle, a_t, w_t):
-        (m, k), n = a_t.shape, w_t.shape[1]
-        err = handle.ws_activity_toggles(a_t.data_ptr(), w_t.data_ptr(), out.data_ptr(), m, k, n,
-                                         32, 32, 16, 37, torch._C._cuda_getCurrentRawStream(0))
-        if err:
-            sys.exit(f"launch failed with CUDA error {err}")
+        def k1(fn, a_t=a_t, w_t=w_t):
+            (m, k), n = a_t.shape, w_t.shape[1]
+            return fn(a_t.data_ptr(), w_t.data_ptr(), k1_out.data_ptr(), m, k, n, 32, 32, 16, 37,
+                      stream)
+
+        cases.append(("K1", layer.name, k1, k1_out,
+                      K.ws_activity_toggles_plain(a_t, w_t, 32, 32, 16, 37).tolist()))
+    arrays = table1_ws_bucket(dev)
+    (num_strips, t1, rows), (num_tiles, _, cols) = arrays[0].shape, arrays[1].shape
+    k2_out = torch.empty(arrays[2].shape[0], dtype=torch.int64, device=dev)
+
+    def k2(fn):
+        return fn(*(x.data_ptr() for x in arrays), k2_out.data_ptr(), k2_out.shape[0], num_strips,
+                  num_tiles, t1, rows, cols, 37, stream)
+
+    cases.append(("K2", f"Table-I WS bucket, {k2_out.shape[0]} tasks", k2, k2_out,
+                  K.ws_task_toggles_plain(*arrays, 37).tolist()))
 
     def median_ms(call, calls=20, bursts=5):
         times = []
@@ -121,15 +182,19 @@ def main() -> None:
         return statistics.median(times)
 
     for turn in range(2):
-        for name, handle in libs.items():
-            per_layer = []
-            for layer, a_t, w_t, want in layers:
-                run(handle, a_t, w_t)
+        for (kernel, name), fn in libs.items():
+            times = []
+            for case_kernel, what, run, out, want in cases:
+                if case_kernel != kernel:
+                    continue
+                if run(fn):
+                    sys.exit(f"{kernel} variant {name!r}: launch failed on {what}")
                 if out.tolist() != want:
-                    sys.exit(f"variant {name!r} on {layer}: {out.tolist()}, plain version {want}")
-                per_layer.append(median_ms(lambda: run(handle, a_t, w_t)))
-            print(f"turn {turn} {name:22s} six layers {sum(per_layer):.4f} ms: "
-                  + " ".join(f"{ms:.4f}" for ms in per_layer))
+                    sys.exit(f"{kernel} variant {name!r} on {what}: counts differ from the plain "
+                             f"version's")
+                times.append(median_ms(lambda: run(fn)))
+            print(f"turn {turn} {kernel} {name:34s} {sum(times):.4f} ms: "
+                  + " ".join(f"{ms:.4f}" for ms in times))
 
 
 if __name__ == "__main__":
