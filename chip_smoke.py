@@ -10,9 +10,10 @@ Phases (any mismatch exits non-zero; nothing is caught):
    ``src/repro_torch/csrc`` (one ``nvcc`` per source, all started
    together), print the build time and each kernel's registers and spills,
    and check with ``cuobjdump -sass`` that the tensor-core kernels hold
-   ``HGMMA`` (bf16) and ``IGMMA`` (int8) instructions; print the ``POPC``,
-   ``SHFL``, 128-bit ``LDG`` and ``REDUX`` counts of K1, K2 and K5 (none may
-   hold a shuffle or spill, and K5 must hold 16-byte loads).
+   ``HGMMA`` (bf16), ``IGMMA`` (int8) and, in K6, TF32 ``HGMMA``
+   instructions; print the ``POPC``, ``SHFL``, 128-bit ``LDG`` and
+   ``REDUX`` counts of K1, K2, K3 and K5 (none may hold a shuffle or spill,
+   and K3 and K5 must hold 16-byte loads).
 2. Hold each kernel against its plain PyTorch version on the card, element
    for element: K1 and K4 (K4's wrapper launches K5's kernel) on the
    reference test matrices and on every ResNet50 Table-I layer (and the
@@ -21,17 +22,22 @@ Phases (any mismatch exits non-zero; nothing is caught):
    for the reference's ragged WS and OS job sets, and on the Table-I WS
    bucket (3776 tasks over 720 strips) and OS stream bucket (496 strips),
    K2 also on its edge buckets (every run layout, valid_r of 0, partial and
-   full, bad ids, operands at the int16 extremes); K5, K6
+   full, bad ids, operands at the int16 extremes), K3 also at the edges of
+   its column walk (lanes 1, 3, 5 and 7, t1 = 2, one strip, misaligned
+   bases); K5, K6
    and K7 at the shapes of the reference's ``tests/test_kernels.py``
    (integers exact, f32 attention within 1e-5), K5 also on misaligned
    bases, T = 2 and 3, 600,000 lanes and an int32 stream on every bus of
    33-64 bits, each K6 and K7 case through
    ``ws_gemm`` and ``flash_attention_fwd`` on the route its type and shape
-   pick, whose counter must move: the tensor cores (kernels ``ws_gemm_tc``
-   with its prep kernel ``gemm_operand_planes``, held against its plain
-   version too, and ``flash_attention_tc``) for int8, int16 and bf16, the
-   CUDA cores (kernels ``ws_matmul`` and ``flash_attention_fwd``) for f32
-   and for bf16 GEMMs whose K or N is not a multiple of 8.
+   pick, whose counter must move. K6 runs every type on the tensor cores
+   (kernel ``ws_gemm_tc``, with its prep kernel ``gemm_operand_planes``,
+   held against its plain version bit for bit): int8, int16 and bf16 with
+   K and N multiples of 8 on the "tc" route, f32 (three TF32 products) and
+   the other bf16 on the "tf32" route, also at ragged shapes, on offset
+   views, near f32's largest value and with inf and NaN entries. K7 runs
+   bf16 on the tensor cores (``flash_attention_tc``) and f32 on the CUDA
+   cores (``flash_attention_fwd``).
 3. The two main paths, on the paper's 32x32 array with int16 operands, WS
    and OS, each with every kernel count set to 0 just before it and read
    just after:
@@ -57,7 +63,8 @@ Phases (any mismatch exits non-zero; nothing is caught):
      its plain version (wrapped mod 2^32), and the int16 product must equal
      the wrapped sum of each tile's bottom partial sums; and one bf16
      product at Qwen3-8B's MLP width (4096 tokens x 4096 x 12288), within
-     1e-5 * (|a| @ |w|) elementwise.  Every one must take the tensor cores.
+     1e-5 * (|a| @ |w|) elementwise.  Every one must take the tensor cores
+     ("tc" route).
    * K7 runs Qwen3-8B prefill (H=32, KV=8, D=128, S=4096, causal) and
      Mixtral-8x7B (S=8192, window 4096) in bf16, within rtol 1.6e-2 and
      atol 1e-3 of its plain version (f32 math, query chunks of 1024 rows),
@@ -68,15 +75,20 @@ Phases (any mismatch exits non-zero; nothing is caught):
    toggle counters' bound is the largest of their bytes, their 32-bit
    integer ops and their popcounts at this card's rates, and names the
    binding term; K5 is summed apart over its 12 partial-sum streams and its
-   36 operand streams.  The
-   CUDA-core K6 and K7, off the main path since the tensor-core routes
-   took it over, are timed in f32, their one type there, at the same
-   full-width shapes (the Qwen3-8B MLP and both attention cases).
+   36 operand streams.  K3, K4 and K6's prep kernel, whose calls cost the
+   host more than the card, are also timed by their device time, read from
+   ``torch.profiler`` over a burst of calls with the L2 flushed before
+   each.  K6 is timed in f32 on the "tf32" route at the Qwen3-8B MLP
+   (seeded f32 operands, held to 1e-5 * (|a| @ |w|) there) beside
+   ``torch.matmul`` in full f32, with the bound of three TF32 products and
+   that of the f32 CUDA-core rate; K7 in f32 on the CUDA cores at both
+   attention cases, each beside SDPA in f32.
 5. Trace each main path once more with ``torch.profiler`` and print the
    device's busy share and the device time of each kernel and copy.
 
-The last lines are the ``kernels`` JSON object (every kernel; the CUDA-core
-K6 and K7 with no launch on the main path), the ``nvidia-smi`` line and
+The last lines are the ``kernels`` JSON object (every kernel; K6's "tf32"
+route and the CUDA-core K7 with no launch on the main path), the
+``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when no
 CUDA device is available or when the repository's ``src/`` is missing.
 """
@@ -95,11 +107,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 REL_TOL = 1e-12
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at the 700 W
-# limit): HBM bytes/s; the float32 CUDA-core rate (the CUDA-core K6 and
-# K7); and the tensor-core rates for bf16 and int8.
+# limit): HBM bytes/s; the float32 CUDA-core rate (the CUDA-core K7, and
+# K6 f32 as the CUDA cores would bound it); and the tensor-core rates for
+# bf16, TF32 (K6 f32: three TF32 products) and int8.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_INT8_OPS = 1979e12
 # Results per clock on each SM of compute capability 9.0 (NVIDIA's CUDA C++
 # table of arithmetic-instruction throughput): 32-bit
@@ -112,17 +126,22 @@ POPC_PER_CLOCK_SM = 16
 PROFILER_OWN_EVENTS = ("Activity Buffer Request",)
 KERNELS = (
     "ws_activity_toggles", "ws_task_toggles", "strip_toggles", "operand_stream_toggles",
-    "stream_toggles", "ws_gemm", "flash_attention_fwd",
+    "stream_toggles", "ws_gemm_tf32", "flash_attention_fwd",
     "ws_gemm_tc", "gemm_operand_planes", "flash_attention_tc",
 )
-# The tensor-core kernels and the SASS instructions each must hold.
-TC_SASS = {"ws_gemm_tc_kernel": ("HGMMA", "IGMMA"), "flash_attention_tc_kernel": ("HGMMA",)}
+# The tensor-core kernels and the SASS instructions each must hold (TF32:
+# HGMMA lines over tf32 operands, K6's "tf32" route).
+TC_SASS = {"ws_gemm_tc_kernel": ("HGMMA", "IGMMA", "TF32"),
+           "flash_attention_tc_kernel": ("HGMMA",)}
 # The redesigned toggle counters (source, kernel): their SASS is counted for
 # popcounts, shuffles (none: registers blocked in time, REDUX sums) and
-# 16-byte global loads (K5's lane groups), and ptxas must report no spill.
+# 16-byte global loads (K5's lane groups, which K3 walks too), and ptxas
+# must report no spill.
 INT_SASS = (("activity_profile", "ws_activity_toggles_kernel"),
             ("activity_batch", "ws_task_toggles_kernel"),
-            ("toggle_count", "stream_toggles_kernel"))
+            ("toggle_count", "stream_toggles_kernel"),
+            ("toggle_count", "strip_toggles_kernel"))
+WIDE_LOADS = ("stream_toggles_kernel", "strip_toggles_kernel")
 SASS_OPS = {"POPC": r"\bPOPC\b", "SHFL": r"\bSHFL\.", "LDG.E.128": r"\bLDG\.E(?:\.\w+)*\.128\b",
             "REDUX": r"\bREDUX\b"}
 # Tolerances of the float kernels against their plain versions (f32 math
@@ -131,6 +150,8 @@ SASS_OPS = {"POPC": r"\bPOPC\b", "SHFL": r"\bSHFL\.", "LDG.E.128": r"\bLDG\.E(?:
 # summed; K7 in f32 within F32_TOL (rtol and atol), in bf16 within about
 # two bf16 ulps of the output (2^-7 relative each), BF16_RTOL and BF16_ATOL.
 GEMM_REL_TOL = 1e-5
+F32_MAX = 3.4028234663852886e38  # the largest finite float32
+L2_FLUSH_BYTES = 128 << 20  # more than the H100's 50 MB L2
 F32_TOL = 1e-5
 BF16_RTOL = 1.6e-2
 BF16_ATOL = 1e-3
@@ -211,6 +232,13 @@ K5_EDGE_CASES = [
     ((37, 1), 1), ((37, 3), 1), ((37, 5), 1), ((37, 4096), 1), ((37, 4097), 1),
     ((2, 1000), 0), ((3, 4096), 0), ((3, 7), 0), ((4, 600_000), 0),
 ]
+# K3 at the edges of K5's column walk (tests/test_torch_cuda.py K3_EDGES):
+# (strips, t1, lanes), each at element offset 0 and 1 (a misaligned base
+# starts 16-byte rows with scalar head lanes): lanes 1, 3, 5 and 7 (scalar),
+# 4, 8 and 32 (16-byte groups), t1 = 2, one strip and many, strips of
+# several time chunks.
+K3_EDGE_CASES = [(1, 2, 1), (1, 2, 3), (3, 2, 5), (1, 9, 3), (4, 17, 5), (2, 40, 4),
+                 (7, 129, 8), (1, 300, 5), (720, 129, 32), (33, 1000, 7)]
 
 # The reference's ragged batches: tests/test_profile_pipeline.py RAGGED /
 # OS_RAGGED.
@@ -236,6 +264,11 @@ GEMM_SHAPES = [(128, 128, 128), (1, 1, 1), (200, 300, 170), (127, 129, 255), (38
 FLOAT_GEMM_SHAPES = [(130, 260, 140), (64, 512, 64)]
 # bf16 shapes of the tensor-core route (K and N multiples of 8, ragged M).
 TC_GEMM_SHAPES = [(130, 264, 136), (256, 512, 384)]
+# Ragged shapes of the "tf32" route (f32, and bf16 with K or N not a
+# multiple of 8): K in {1, 7, 33}, N in {1, 129}, M in {1, 130}, and one of
+# several K slices and N tiles.
+TF32_GEMM_SHAPES = [(1, 1, 1), (130, 7, 129), (130, 33, 1), (1, 33, 129), (130, 1, 129),
+                    (1, 7, 1), (300, 4100, 520)]
 ATTENTION_SMALL = [
     # b, h, kv, s, d, causal, window
     (1, 1, 1, 128, 64, True, None),
@@ -329,7 +362,7 @@ def main() -> None:
     counters = {name: (getattr(K, name), "launches") for name in KERNELS[:4]}
     counters.update(
         stream_toggles=(TC.stream_toggles, "launches"),
-        ws_gemm=(WM.ws_gemm, "simt_launches"),
+        ws_gemm_tf32=(WM.ws_gemm, "tf32_launches"),
         ws_gemm_tc=(WM.ws_gemm, "tc_launches"),
         gemm_operand_planes=(WM.ws_gemm, "prep_launches"),
         flash_attention_fwd=(FA.flash_attention_fwd, "simt_launches"),
@@ -383,6 +416,7 @@ def main() -> None:
             if not parts:
                 continue
             counts = {op: sum(part.count(op) for part in parts) for op in ("HGMMA", "IGMMA")}
+            counts["TF32"] = sum(len(re.findall(r"\bHGMMA\.\S*TF32", part)) for part in parts)
             print(f"  sass[{source}] {kernel}: {counts} over {len(parts)} instantiations")
             for op in wanted:
                 check(counts[op] > 0, f"{kernel} holds no {op} instruction")
@@ -395,7 +429,7 @@ def main() -> None:
             counts = {op: len(re.findall(pattern, part)) for op, pattern in SASS_OPS.items()}
             print(f"  sass[{source}] {part.split()[0][:90]}: {counts}")
             check(counts["SHFL"] == 0, f"{kernel} holds shuffles")
-            if kernel == "stream_toggles_kernel":
+            if kernel in WIDE_LOADS:
                 check(counts["LDG.E.128"] > 0, f"{kernel} holds no 16-byte global load")
 
     # -- phase 2: kernels vs plain versions on the card ---------------------
@@ -437,7 +471,9 @@ def main() -> None:
         return got
 
     def check_k3(strips_t, bits, what) -> None:
+        before = K.strip_toggles.launches
         got = K.strip_toggles(strips_t, bits).tolist()
+        check(K.strip_toggles.launches == before + 1, f"K3 {what}: strip_toggles was not launched")
         plain = K.strip_toggles_plain(strips_t, bits).tolist()
         note("strip_toggles", got, plain)
         check(got == plain, f"K3 {what}: kernel and plain version differ")
@@ -462,9 +498,11 @@ def main() -> None:
 
     def check_k6(a_t, w_t, what) -> torch.Tensor:
         """K6 on the route of its type and shape vs its plain version:
-        integers bit for bit, floats within GEMM_REL_TOL * (|a| @ |w|)."""
+        integers bit for bit; floats within GEMM_REL_TOL * (|a| @ |w|)
+        where the plain version is finite, and inf and NaN where it has
+        them."""
         route = WM.gemm_route(a_t.dtype, *a_t.shape, w_t.shape[1])
-        name, attr = ("ws_gemm_tc", "tc_launches") if route == "tc" else ("ws_gemm", "simt_launches")
+        name, attr = ("ws_gemm_tc", "tc_launches") if route == "tc" else ("ws_gemm_tf32", "tf32_launches")
         what = f"{what} on the {route} route"
         before = getattr(WM.ws_gemm, attr)
         got = WM.ws_gemm(a_t, w_t)
@@ -473,9 +511,13 @@ def main() -> None:
         if got.numel() == 0:
             return got
         if a_t.dtype.is_floating_point:
-            err = (got - plain).abs()
-            within = err <= GEMM_REL_TOL * (a_t.float().abs() @ w_t.float().abs())
-            ok = bool(torch.isfinite(got).all()) and bool(within.all())
+            finite = torch.isfinite(plain)
+            err = (got - plain).abs()[finite]
+            within = err <= GEMM_REL_TOL * (a_t.float().abs() @ w_t.float().abs())[finite]
+            ok = (torch.equal(torch.isfinite(got), finite) and bool(within.all())
+                  and torch.equal(got[~finite].nan_to_num(), plain[~finite].nan_to_num()))
+            if err.numel() == 0:
+                err = torch.zeros(1, device=dev)
         else:
             err = (got.long() - plain.long()).abs()
             ok = torch.equal(got, plain)
@@ -484,8 +526,12 @@ def main() -> None:
         return got
 
     def check_planes(a_t, w_t, what) -> None:
+        """The prep kernel vs its plain version, bit for bit (f32 planes as
+        int32, so that NaN compares too)."""
         got = WM.gemm_operand_planes(a_t, w_t)
         for g, p in zip(got, WM.gemm_operand_planes_plain(a_t, w_t)):
+            if g.dtype == torch.float32:
+                g, p = g.view(torch.int32), p.view(torch.int32)
             check(torch.equal(g, p), f"gemm_operand_planes {what}: kernel and plain version differ")
 
     def check_k7(q, k, v, causal, window, what) -> torch.Tensor:
@@ -595,6 +641,12 @@ def main() -> None:
         check_k3(arrays[0], b.b_h, what)
     for b, strips_t in os_buckets:
         check_k3(strips_t, b.bits, f"ragged OS stream bucket bits={b.bits} t_seg={b.t_seg}")
+    for shape in K3_EDGE_CASES:
+        for offset in (0, 1):
+            flat = on_card(rng.integers(-32768, 32768, size=int(np.prod(shape)) + offset))
+            strips_t = flat[offset:].view(shape)
+            for bits in (1, 16, 33, 64):
+                check_k3(strips_t, bits, f"edge strips {shape} offset {offset} bits={bits}")
 
     operands = []
     table1_jobs = {
@@ -619,7 +671,8 @@ def main() -> None:
     print(f"kernels vs plain versions: equal on "
           f"{len(CASES) + 1 + len(K1_EDGE_CASES) + len(RESNET50_TABLE1)} WS and "
           f"{2 * (len(OS_CASES) + len(RESNET50_TABLE1))} OS per-GEMM inputs, "
-          f"{len(ws_buckets) + 1} WS buckets and {len(os_buckets) + 1} OS stream buckets",
+          f"{len(ws_buckets) + 1} WS buckets and {len(os_buckets) + 1} OS stream buckets, "
+          f"K3 also on {2 * len(K3_EDGE_CASES)} edge strip stacks at 4 bus widths",
           flush=True)
 
     # K5, K6 and K7 at the reference's test shapes (tests/test_kernels.py),
@@ -657,15 +710,47 @@ def main() -> None:
     wrapped = check_k6(sat_a.to(dev), sat_w.to(dev), "saturating int16 (130, 260, 129)").cpu()
     check(exact.abs().max() > 2**31 and torch.equal(wrapped, wrap_int32(exact)),
           "K6: the saturating int16 GEMM does not wrap mod 2^32")
-    # Floats: f32 and bf16 with K or N not a multiple of 8 on the CUDA
-    # cores, the other bf16 shapes on the tensor cores.
-    float_routes = {"tc": 0, "simt": 0}
-    for m, k, n in FLOAT_GEMM_SHAPES + TC_GEMM_SHAPES:
+    # Floats: f32 and bf16 with K or N not a multiple of 8 on the "tf32"
+    # route, the other bf16 shapes on the "tc" route; the "tf32" route also
+    # at ragged shapes, on views at an offset of one element (data_ptr not
+    # 16-byte aligned), near f32's largest value and with inf and NaN
+    # entries. Its planes are held against their plain version too.
+    float_routes = {"tc": 0, "tf32": 0}
+    for m, k, n in FLOAT_GEMM_SHAPES + TC_GEMM_SHAPES + TF32_GEMM_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             a_t = torch.from_numpy(rng.normal(size=(m, k))).to(dtype).to(dev)
             w_t = torch.from_numpy(rng.normal(size=(k, n))).to(dtype).to(dev)
             check_k6(a_t, w_t, f"{dtype} {(m, k, n)}")
             float_routes[WM.gemm_route(dtype, m, k, n)] += 1
+            if (m, k, n) in TF32_GEMM_SHAPES:
+                check_planes(a_t, w_t, f"{dtype} {(m, k, n)}")
+    for dtype in (torch.float32, torch.bfloat16):
+        for m, k, n in ((130, 33, 129), (64, 64, 64)):
+            flat_a = torch.from_numpy(rng.normal(size=m * k + 1)).to(dtype).to(dev)
+            flat_w = torch.from_numpy(rng.normal(size=k * n + 1)).to(dtype).to(dev)
+            a_t, w_t = flat_a[1:].view(m, k), flat_w[1:].view(k, n)
+            check(a_t.data_ptr() % 16 != 0, "K6: the offset view is 16-byte aligned")
+            check_k6(a_t, w_t, f"{dtype} {(m, k, n)} offset view")
+            float_routes[WM.gemm_route(dtype, m, k, n)] += 1
+    big = torch.from_numpy(F32_MAX * rng.uniform(0.5, 1.0, size=(130, 40))).float()
+    big[:, 0] = F32_MAX
+    big[::2] *= -1
+    small = torch.from_numpy(rng.normal(size=(40, 129)) * 2.0**-20).float()
+    check_planes(big.to(dev), small.to(dev), "f32 near the largest value")
+    check_k6(big.to(dev), small.to(dev), "f32 (130, 40, 129) near the largest value")
+    float_routes["tf32"] += 1
+    for dtype in (torch.float32, torch.bfloat16):
+        a = torch.from_numpy(rng.normal(size=(70, 33))).float()
+        w = torch.from_numpy(rng.normal(size=(33, 40))).float()
+        w[:, :4] = torch.round(w[:, :4])  # values that TF32 holds exactly, and zeros
+        a[3, 5], a[7, 0], a[9, 9] = float("inf"), float("-inf"), float("nan")
+        w[11, 6], w[2, 7] = float("inf"), float("-inf")
+        a_t, w_t = a.to(dtype).to(dev), w.to(dtype).to(dev)
+        check_planes(a_t, w_t, f"{dtype} with inf and NaN")
+        got = check_k6(a_t, w_t, f"{dtype} (70, 33, 40) with inf and NaN")
+        check(bool(got.isnan().any()) and bool(got.isinf().any()),
+              f"K6 {dtype} with inf and NaN: no inf or no NaN in the result")
+        float_routes["tf32"] += 1
     for b, h, kv, s_len, d, causal, window in ATTENTION_SMALL:
         q, k_, v = (torch.from_numpy(rng.normal(size=(b, heads, s_len, d))).float().to(dev)
                     for heads in (h, kv, kv))
@@ -680,8 +765,8 @@ def main() -> None:
           f"widths, {2 * len(K5_EDGE_CASES)} edge streams at 3 and one int32 stream at 32 "
           f"(equal), K6 on {2 * len(GEMM_SHAPES) + 1} integer GEMMs on the tensor cores "
           f"(equal, one wrapping; the planes equal too) and float GEMMs, {float_routes['tc']} "
-          f"on the tensor cores and {float_routes['simt']} on the CUDA cores (within "
-          f"{GEMM_REL_TOL} * |a| @ |w|), K7 on {len(ATTENTION_SMALL)} f32 cases on the CUDA cores "
+          f"on the tc route and {float_routes['tf32']} on the tf32 route (within "
+          f"{GEMM_REL_TOL} * |a| @ |w|, inf and NaN as the plain version; planes equal), K7 on {len(ATTENTION_SMALL)} f32 cases on the CUDA cores "
           f"(within {F32_TOL}) and {len(ATTENTION_BF16)} bf16 cases on the tensor cores (within "
           f"rtol {BF16_RTOL}, atol {BF16_ATOL})", flush=True)
 
@@ -913,9 +998,9 @@ def main() -> None:
     print(f"kernel-library path (with its checks): {checked_ms:.1f} ms; launches {counts}", flush=True)
     for name in library_kernels:
         check(counts[name] > 0, f"{name} was not launched on the kernel-library path")
-    for name in ("ws_gemm", "flash_attention_fwd"):
-        check(counts[name] == 0, f"{name} (the CUDA cores) ran on the kernel-library path")
-    for name in library_kernels + ("ws_gemm", "flash_attention_fwd"):
+    for name in ("ws_gemm_tf32", "flash_attention_fwd"):
+        check(counts[name] == 0, f"{name} (f32 routes) ran on the kernel-library path")
+    for name in library_kernels + ("ws_gemm_tf32", "flash_attention_fwd"):
         launches[name] = counts[name]
 
     # -- phase 4: times at the main paths' shapes ----------------------------
@@ -935,6 +1020,50 @@ def main() -> None:
             if burst:
                 times.append(start.elapsed_time(end) / calls)
         return statistics.median(times)
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_events(prof) -> dict:
+        """(ms, count) of each device-side event (kernels and copies) of a
+        trace, but the profiler's own."""
+        return {
+            ev.key: (ev.self_device_time_total / 1e3, ev.count)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
+            and ev.key not in PROFILER_OWN_EVENTS
+        }
+
+    # Read between the calls that device_ms traces, so that each call finds
+    # its inputs in device memory, not in the 50 MB L2 (a read leaves no
+    # dirty line whose write-back the call would wait for).
+    # Row sums, so that no reduction across blocks (and no memset of its
+    # semaphores, which would hide the kernels' own) takes part.
+    l2_flush = torch.zeros((L2_FLUSH_BYTES // 4096, 1024), dtype=torch.int32, device=dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        l2_flush.sum(dim=1)
+        torch.cuda.synchronize()
+    flush_keys = set(device_events(prof))
+    check(not any("Memset" in key for key in flush_keys),
+          f"the L2 flush sets memory: {sorted(flush_keys)}")
+
+    def device_ms(fn, calls: int = 20) -> tuple[float, dict]:
+        """The device time of one call of ``fn`` from device memory: the
+        device events of ``calls`` calls traced by ``torch.profiler`` (after
+        one warm-up call), with the L2 flushed by a read before each and the
+        flush's own events left out, summed, over ``calls``; and each
+        event's share of it."""
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                l2_flush.sum(dim=1)
+                fn()
+            torch.cuda.synchronize()
+        events = {key: ms / calls for key, (ms, _) in device_events(prof).items()
+                  if key not in flush_keys}
+        check(bool(events), "torch.profiler recorded no device time")
+        return sum(events.values()), events
 
     def bound_ms(n_bytes: int, n_ops: int, ops_per_s: float = PEAK_OPS_PER_S) -> tuple[float, str]:
         t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
@@ -965,8 +1094,10 @@ def main() -> None:
     }
     parts: dict[str, dict[str, dict]] = {}
 
-    def add(name, ms, plain, bound, by, library=None, part=None):
+    def add(name, ms, plain, bound, by, library=None, part=None, device=None):
         t = totals[name]
+        if device is not None:
+            t["device_ms"] = t.get("device_ms", 0.0) + device
         t["ms"] += ms
         t["plain_ms"] += plain
         t["bound_ms"] += bound
@@ -1004,11 +1135,12 @@ def main() -> None:
             x_t = on_card(stream)
             t_len, lanes = stream.shape
             ms = median_ms(lambda: K.operand_stream_toggles(x_t, OPERAND_BUS), calls=20)
+            device, _ = device_ms(lambda: K.operand_stream_toggles(x_t, OPERAND_BUS))
             plain = median_ms(lambda: K.operand_stream_toggles_plain(x_t, OPERAND_BUS), calls=2, bursts=3)
             bound, by = toggle_bound_ms(4 * t_len * lanes + 8, 0, (t_len - 1) * lanes, OPERAND_BUS)
-            add("operand_stream_toggles", ms, plain, bound, by)
-            print(f"  K4 {name} {what} stream {t_len}x{lanes}: {ms:.4f} ms, plain {plain:.4f} ms, "
-                  f"bound {bound:.6f} ms ({by})")
+            add("operand_stream_toggles", ms, plain, bound, by, device=device)
+            print(f"  K4 {name} {what} stream {t_len}x{lanes}: {ms:.4f} ms a call, device "
+                  f"{device:.5f} ms, plain {plain:.4f} ms, bound {bound:.6f} ms ({by})")
 
     # K2: the partial sums these tasks need, t_seg x valid_r x cols each
     # (time padding included: it is the kernel's input); K3: every value
@@ -1030,13 +1162,16 @@ def main() -> None:
           f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.5f} ms ({by})")
     for strips_x, bits, what in ((strips_t, 16, "WS strips"), (os_strips, 16, "OS stream strips")):
         ms = median_ms(lambda: K.strip_toggles(strips_x, bits), calls=20)
+        device, events = device_ms(lambda: K.strip_toggles(strips_x, bits))
         plain = median_ms(lambda: K.strip_toggles_plain(strips_x, bits), calls=2, bursts=3)
         values = strips_x.numel()
         transitions = values - strips_x.shape[0] * strips_x.shape[2]  # row 0 of each strip seeds
         bound, by = toggle_bound_ms(4 * values + 8 * strips_x.shape[0], 0, transitions, bits)
-        add("strip_toggles", ms, plain, bound, by)
-        print(f"  K3 Table-I {what} {tuple(strips_x.shape)}: {ms:.4f} ms, plain {plain:.4f} ms, "
-              f"bound {bound:.6f} ms ({by})")
+        add("strip_toggles", ms, plain, bound, by, device=device, part=what)
+        print(f"  K3 Table-I {what} {tuple(strips_x.shape)}: {ms:.4f} ms a call, device "
+              f"{device:.5f} ms ({100 * bound / device:.1f}% of the bound; "
+              + ", ".join(f"{ms_:.5f} {key[:40]}" for key, ms_ in events.items())
+              + f"), plain {plain:.4f} ms, bound {bound:.6f} ms ({by})")
 
     # K5: each stream the kernel-library path counts, at its bus width; every
     # value read once.  The 12 partial-sum streams and the 36 operand streams
@@ -1081,6 +1216,7 @@ def main() -> None:
             y = torch.from_numpy(y_np).to(dtype).to(dev)
             tc = median_ms(lambda: WM.ws_gemm(x, y), calls=20)
             prep = median_ms(lambda: WM.gemm_operand_planes(x, y), calls=20)
+            prep_device, _ = device_ms(lambda: WM.gemm_operand_planes(x, y))
             plain = median_ms(lambda: WM.ws_gemm_plain(x, y), calls=5, bursts=3)
             prep_plain = median_ms(lambda: WM.gemm_operand_planes_plain(x, y), calls=5, bursts=3)
             library = median_ms(lambda: torch._int_mm(x, y), calls=20) if part == "int8" else None
@@ -1090,18 +1226,19 @@ def main() -> None:
             kp = -(-k // WM.PLANE_K) * WM.PLANE_K
             bound_prep, by_prep = bound_ms(size * (m * k + k * n) + size * (m + n) * kp, 0)
             add("ws_gemm_tc", tc, plain, bound_tc, by_tc, library, part)
-            add("gemm_operand_planes", prep, prep_plain, bound_prep, by_prep, None, part)
+            add("gemm_operand_planes", prep, prep_plain, bound_prep, by_prep, None, part,
+                device=prep_device)
             lib_text = f"torch._int_mm {library:.4f} ms" if library is not None else "no library call"
-            print(f"  K6 {name} {part} {m}x{k}x{n}: tensor cores {tc:.4f} ms (prep {prep:.4f} ms, "
-                  f"plain {prep_plain:.4f} ms, bound {bound_prep:.6f} ms), plain {plain:.4f} ms, "
-                  f"{lib_text}, bound {bound_tc:.5f} ms ({by_tc})")
+            print(f"  K6 {name} {part} {m}x{k}x{n}: tensor cores {tc:.4f} ms (prep {prep:.4f} ms a "
+                  f"call, device {prep_device:.5f} ms, plain {prep_plain:.4f} ms, bound "
+                  f"{bound_prep:.6f} ms), plain {plain:.4f} ms, {lib_text}, bound {bound_tc:.5f} ms "
+                  f"({by_tc})")
     for part, q in parts["stream_toggles"].items():
         print(f"  K5 {part}, all layers: {q['calls']} calls {q['ms']:.4f} ms, plain "
               f"{q['plain_ms']:.4f} ms, bound {q['bound_ms']:.5f} ms ("
               f"{100 * q['bound_ms'] / q['ms']:.1f}% of it)")
-    # K6 at the Qwen3-8B MLP width: bf16 on the tensor cores, and f32 (its
-    # one type on the main path's shapes) on the CUDA cores at the f32
-    # CUDA-core rate; each beside torch.matmul on the same inputs (bf16 out
+    # K6 at the Qwen3-8B MLP width: bf16 on the "tc" route, and f32 on the
+    # "tf32" route; each beside torch.matmul on the same inputs (bf16 out
     # for bf16, full f32 for f32).
     m, k = mlp_x.shape
     n = mlp_w.shape[1]
@@ -1113,15 +1250,37 @@ def main() -> None:
     print(f"  K6 Qwen3-8B MLP bf16 {m}x{k}x{n}: tensor cores {tc:.4f} ms "
           f"({2 * m * k * n / tc / 1e9:.1f} TFLOP/s), plain (f32) {plain:.4f} ms, torch.matmul "
           f"(bf16 out) {library:.4f} ms, bound {bound:.5f} ms ({by})")
-    mlp_x32, mlp_w32 = mlp_x.float(), mlp_w.float()
-    simt = median_ms(lambda: WM.ws_gemm(mlp_x32, mlp_w32), calls=3, bursts=3)
+    # f32: seeded f32 operands made on the card (not the bf16 ones widened,
+    # whose values TF32 holds exactly, so that the small planes are not
+    # zero), held to GEMM_REL_TOL * (|a| @ |w|) before they are timed. The
+    # bound counts the three TF32 products at the TF32 rate; the bound of
+    # one f32 product at the f32 CUDA-core rate is printed beside it.
+    mlp_x32 = torch.randn(m, k, generator=gen, device=dev)
+    mlp_w32 = torch.randn(k, n, generator=gen, device=dev) * k ** -0.5
+    before = WM.ws_gemm.tf32_launches
+    got = WM.ws_gemm(mlp_x32, mlp_w32)
+    check(WM.ws_gemm.tf32_launches == before + 1, "K6 f32 MLP did not take the tf32 route")
+    plain = WM.ws_gemm_plain(mlp_x32, mlp_w32)
+    err = (got - plain).abs()
+    check(bool(torch.isfinite(got).all())
+          and bool((err <= GEMM_REL_TOL * (mlp_x32.abs() @ mlp_w32.abs())).all()),
+          f"K6 f32 MLP: |kernel - plain| beyond {GEMM_REL_TOL} * |a| @ |w|")
+    max_err["ws_gemm_tf32"] = max(max_err["ws_gemm_tf32"], err.max().item())
+    print(f"  K6 Qwen3-8B MLP f32 {m}x{k}x{n}: max |kernel - plain| {err.max().item()!r}, within "
+          f"{GEMM_REL_TOL} * |a| @ |w|")
+    del got, plain, err
+    tf32 = median_ms(lambda: WM.ws_gemm(mlp_x32, mlp_w32), calls=5, bursts=3)
     plain = median_ms(lambda: WM.ws_gemm_plain(mlp_x32, mlp_w32), calls=3, bursts=3)
-    library = median_ms(lambda: torch.matmul(mlp_x32, mlp_w32), calls=3, bursts=3)
-    bound, by = bound_ms(4 * (m * k + k * n + m * n), 2 * m * k * n, PEAK_OPS_PER_S)
-    add("ws_gemm", simt, plain, bound, by, library, "f32")
-    print(f"  K6 Qwen3-8B MLP f32 {m}x{k}x{n}: CUDA cores {simt:.4f} ms "
-          f"({2 * m * k * n / simt / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, torch.matmul "
-          f"{library:.4f} ms, bound {bound:.5f} ms ({by})")
+    library = median_ms(lambda: torch.matmul(mlp_x32, mlp_w32), calls=5, bursts=3)
+    n_bytes = 4 * (m * k + k * n + m * n)
+    bound, by = bound_ms(n_bytes, 3 * 2 * m * k * n, PEAK_TF32_FLOPS)
+    bound_f32, _ = bound_ms(n_bytes, 2 * m * k * n, PEAK_OPS_PER_S)
+    add("ws_gemm_tf32", tf32, plain, bound, by, library, "f32")
+    print(f"  K6 Qwen3-8B MLP f32 {m}x{k}x{n}: tf32 route (three TF32 products) {tf32:.4f} ms "
+          f"({2 * m * k * n / tf32 / 1e9:.1f} f32 TFLOP/s), plain {plain:.4f} ms, torch.matmul "
+          f"(full f32) {library:.4f} ms ({library / tf32:.2f}x the route's time), bound "
+          f"{bound:.5f} ms ({by}: 3 TF32 products at 495 TFLOP/s; one f32 product at 67 TFLOP/s: "
+          f"{bound_f32:.5f} ms)")
     del mlp_x32, mlp_w32
     # K7: 4 * D operations per visible (query, key) pair; the library call
     # is scaled_dot_product_attention on K and V repeated to the query heads
@@ -1164,8 +1323,8 @@ def main() -> None:
         bound, by = bound_ms(2 * n_bytes, flops, PEAK_OPS_PER_S)
         add("flash_attention_fwd", simt, plain, bound, by, library, case + " f32")
         print(f"  K7 {case} f32: CUDA cores {simt:.4f} ms ({flops / simt / 1e9:.1f} TFLOP/s), "
-              f"plain {plain:.4f} ms, scaled_dot_product_attention {library:.4f} ms, bound "
-              f"{bound:.5f} ms ({by})")
+              f"plain {plain:.4f} ms, scaled_dot_product_attention (f32) {library:.4f} ms "
+              f"({simt / library:.2f}x its time), bound {bound:.5f} ms ({by})")
         del q, k_, v, k_rep, v_rep
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1175,9 +1334,6 @@ def main() -> None:
     print(f"kernel-library path wall (no checks): {main_ms['library']:.1f} ms", flush=True)
 
     # -- phase 5: where each main path's time goes -----------------------------
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     def both_dataflows(run):
         def go():
             for dataflow in ("WS", "OS"):
@@ -1196,17 +1352,13 @@ def main() -> None:
             wall_ms = (time.perf_counter() - t0) * 1e3
         # Device-side events only (kernels and copies); host ops that launched
         # them would count their time twice.  The profiler's own buffer
-        # request is shown but is not the program's work.
-        device_ms = {
-            ev.key: (ev.self_device_time_total / 1e3, ev.count)
-            for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
-        }
-        busy_ms = sum(ms for key, (ms, _) in device_ms.items() if key not in PROFILER_OWN_EVENTS)
+        # request is not the program's work and is left out.
+        events = device_events(prof)
+        busy_ms = sum(ms for ms, _ in events.values())
         print(f"trace of the {path}, profiler on): wall "
               f"{wall_ms:.1f} ms, device busy {busy_ms:.4f} ms = {100 * busy_ms / wall_ms:.3f}% "
               f"of the wall time")
-        for key, (ms, count) in sorted(device_ms.items(), key=lambda kv: -kv[1][0])[:10]:
+        for key, (ms, count) in sorted(events.items(), key=lambda kv: -kv[1][0])[:10]:
             print(f"  device {ms:.4f} ms in {count} x {key[:90]}")
 
     meta = {
@@ -1219,7 +1371,7 @@ def main() -> None:
             "src/repro/kernels/activity_profile/kernel.py:332",
         ),
         "strip_toggles": (
-            "src/repro_torch/csrc/activity_batch.cu",
+            "src/repro_torch/csrc/toggle_count.cu",
             "src/repro/kernels/activity_profile/kernel.py:298",
         ),
         "operand_stream_toggles": (
@@ -1230,7 +1382,7 @@ def main() -> None:
             "src/repro_torch/csrc/toggle_count.cu",
             "src/repro/kernels/toggle_count/kernel.py:34",
         ),
-        "ws_gemm": (
+        "ws_gemm_tf32": (
             "src/repro_torch/csrc/ws_matmul.cu",
             "src/repro/kernels/ws_matmul/kernel.py:55",
         ),
@@ -1271,12 +1423,18 @@ def main() -> None:
             # bytes, integer ops or popcounts (K1-K5); operations (K6, K7)
             "bound_term": term,
         }
+        if "device_ms" in t:
+            # the kernels' device time (torch.profiler), where a call's host
+            # work outlasts its kernel and "ms" is the host's
+            row["device_ms"] = t["device_ms"]
         if name == "ws_gemm_tc":
             row["library_covers"] = ("int8 (torch._int_mm) and bf16 (torch.matmul) calls; "
                                      "PyTorch has no CUDA int16 GEMM")
-        if name in ("ws_gemm", "flash_attention_fwd"):
-            # the CUDA cores: f32 (and bf16 GEMMs with K or N not a multiple
-            # of 8) only, timed in f32 at the main path's shapes
+        if name == "ws_gemm_tf32":
+            row["library_covers"] = "f32 torch.matmul in full f32"
+        if name in ("ws_gemm_tf32", "flash_attention_fwd"):
+            # the f32 routes (K6 also bf16 with K or N not a multiple of 8),
+            # timed in f32 at the main path's shapes
             row["main_path"] = False
         if name in parts:
             row["parts"] = parts[name]

@@ -1,4 +1,4 @@
-// Batched toggle counters of the profiling pipeline for Hopper (sm_90a),
+// Batched toggle counter of the profiling pipeline for Hopper (sm_90a),
 // bound with ctypes.
 //
 // The pipeline (repro_torch/core/pipeline.py) flattens many GEMMs into
@@ -16,22 +16,16 @@
 //    (src/repro/kernels/activity_profile/kernel.py): per task, the toggles of
 //    every vertical (partial-sum) bus, S[t, r, c] = sum_{r' <= r} a[t, r'] *
 //    w[r', c] against S[t - 1, r, c], on a b_v-wide bus.
-// K3 strip_toggles replaces stream_strips_toggles_pallas (same file): per
-//    strip, the toggles of every lane between consecutive rows on a
-//    bits-wide bus. It serves the output-stationary stream buckets and the
-//    weight-stationary horizontal pass, which the reference ran as an XLA
-//    side pass (_h_strips_xla in batch.py).
+//    The pipeline's other batched pass, K3 strip_toggles over the strips
+//    alone, runs on K5's column walk (toggle_count.cu).
 //
-// What bounds them on this card
+// What bounds it on this card
 //   K2 computes K1's function (activity_profile.cu) over stacked tasks:
 //   each partial sum costs an int64 multiply-add, a logic op per 32-bit
 //   word of the b_v bus and b_v / 32 popcounts, against 4 bytes of operand
 //   read per (t, r) and per (r, c). Hopper pops 16 counts a clock on an SM
 //   against 64 integer ops, so the popcount rate bounds it (0.14 ms for the
 //   Table-I bucket at b_v = 37), then the logic ops.
-//   K3 reads each strip element once from device memory and does three
-//   operations on it, so it is bound by bytes: neighbouring threads take
-//   neighbouring lanes of a row, and a row's predecessor comes from cache.
 //
 // The K2 design (K1's, over tasks)
 //   * Work items. An item is (task, group of 32 array columns, run of
@@ -78,10 +72,9 @@
 //     caller allocates it uninitialised. Integer atomics keep the totals
 //     exact and deterministic.
 //
-// What the TPU kernels did that this design drops
+// What the TPU kernel did that this design drops
 //   * Scalar prefetch of the task metadata becomes three index loads per
-//     warp (K2) or none (K3: one block owns a whole strip and writes its
-//     own total).
+//     warp.
 //   * The lo/hi int32 planes stood in for 64-bit integers, which the TPU's
 //     vector unit lacks, and the b_v <= 32 lo-plane fast path skipped the hi
 //     plane. Here the sums are native int64: exact for every bus width in
@@ -111,28 +104,6 @@ constexpr int kTaskWarps = 4;       // K2: warps (items) per block
 constexpr int kRowChunk = 32;       // K2: reduction rows staged at a time
 constexpr int kLongRun = 16;        // K2: transitions a thread counts
 constexpr int kShortRun = 8;        // ... where t_seg % 16 is 1 to 8
-constexpr int kStripThreads = 256;  // K3: threads per strip
-
-__device__ __forceinline__ unsigned long long warp_sum(unsigned long long x) {
-  for (int off = kLanes / 2; off > 0; off >>= 1) x += __shfl_down_sync(kFull, x, off);
-  return x;
-}
-
-// Sum of one value per thread over a block of kStripThreads; the result is
-// valid in thread 0.
-__device__ unsigned long long block_sum(unsigned long long x) {
-  __shared__ unsigned long long part[kStripThreads / kLanes];
-  const int lane = threadIdx.x % kLanes;
-  const int warp = threadIdx.x / kLanes;
-  x = warp_sum(x);
-  if (lane == 0) part[warp] = x;
-  __syncthreads();
-  unsigned long long total = 0;
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < kStripThreads / kLanes; ++i) total += part[i];
-  }
-  return total;
-}
 
 // A 4-byte copy from device to shared memory that bypasses the registers
 // (cp.async); cp_async_wait waits for all of the thread's copies.
@@ -276,31 +247,13 @@ ws_task_toggles_kernel(const int32_t* __restrict__ strips, const int32_t* __rest
   }
 }
 
-// One block per strip; the block's threads stride over the strip's
-// (t1 - 1) x lanes transitions in row-major order.
-__global__ void __launch_bounds__(kStripThreads)
-strip_toggles_kernel(const int32_t* __restrict__ strips, long long* __restrict__ out, int t1,
-                     int lanes, int bits) {
-  const int32_t* strip = strips + static_cast<long long>(blockIdx.x) * t1 * lanes;
-  const unsigned long long mask = toggles::bus_mask(bits);
-  const long long n = static_cast<long long>(t1 - 1) * lanes;
-  unsigned long long cnt = 0;
-  for (long long e = threadIdx.x; e < n; e += blockDim.x) {
-    const long long cur = strip[e + lanes];  // row t = 1 + e / lanes
-    const long long prev = strip[e];         // row t - 1, same lane
-    cnt += __popcll(static_cast<unsigned long long>(cur ^ prev) & mask);
-  }
-  const unsigned long long total = block_sum(cnt);
-  if (threadIdx.x == 0) out[blockIdx.x] = static_cast<long long>(total);
-}
-
 }  // namespace
 
-// C entry points. Pointers are device pointers; `out` receives one int64 per
-// task (K2, zeroed here on the stream before the launch) or strip (K3,
-// written whole). Each returns the first CUDA error of its zeroing and
-// launch (cudaErrorInvalidValue for shapes it cannot launch), so a refused
-// launch is reported to the caller. Neither synchronises.
+// C entry point. Pointers are device pointers; `out` receives one int64 per
+// task, zeroed here on the stream before the launch. Returns the first CUDA
+// error of the zeroing and the launch (cudaErrorInvalidValue for shapes it
+// cannot launch), so a refused launch is reported to the caller. Does not
+// synchronise.
 
 extern "C" int ws_task_toggles(const void* strips, const void* w_tiles, const void* strip_ids,
                                const void* w_ids, const void* valid_r, void* out,
@@ -354,15 +307,5 @@ extern "C" int ws_task_toggles(const void* strips, const void* w_tiles, const vo
   } else {
     launch_runs(ws_task_toggles_kernel<32, kLongRun>, ws_task_toggles_kernel<32, kShortRun>);
   }
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int strip_toggles(const void* strips, void* out, int num_strips, int t1, int lanes,
-                             int bits, void* stream) {
-  if (num_strips < 1 || t1 < 1 || lanes < 1 || bits < 1 || bits > 64) {
-    return cudaErrorInvalidValue;
-  }
-  strip_toggles_kernel<<<num_strips, kStripThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(strips), static_cast<long long*>(out), t1, lanes, bits);
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,7 +11,7 @@
 // whose base is 1024-byte aligned. Read K-major (the reduction dimension
 // along the row), 8 rows form one swizzle atom and the descriptor's stride
 // byte offset (SBO) is 8 * row_bytes; each k slice of one wgmma (32 bytes:
-// 16 bf16 or 32 int8 values) moves the start address 32 bytes along the
+// 16 bf16, 8 tf32 or 32 int8 values) moves the start address 32 bytes along the
 // row. Read MN-major (the output dimension along the row, 16-bit types
 // only), 8 rows of the reduction dimension form one atom (SBO = 8 *
 // row_bytes), a k slice of 16 rows moves the start address 16 rows, and the
@@ -241,6 +241,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 //     smem, MN-major), N 32, 64 or 128.
 //   wgmma_<a><b>: D (64 x 128, s32, wrapping) += A (64 x 32) * B (32 x 128),
 //     both smem K-major, a and b each s8 or u8.
+//   wgmma_tf32_ss: D (64 x N, f32) += A (64 x 8) * B (8 x N), both smem
+//     K-major (tf32 has no transpose bit), N 256.
 // Each is one asm statement written once below, as a macro of its shape:
 // the accumulators d[0..R-1] are operands %0..%(R-1) (HOPPER_LIST<R> and
 // HOPPER_ACC<R>), and the operands after them are numbered from R on.
@@ -316,6 +318,21 @@ HOPPER_WGMMA_I8(wgmma_s8u8, "s8.u8")
 HOPPER_WGMMA_I8(wgmma_u8s8, "u8.s8")
 HOPPER_WGMMA_I8(wgmma_u8u8, "u8.u8")
 
+// tf32, both operands in shared memory K-major: R = N / 2 accumulators,
+// then the descriptors (%A, %B) and scale-d (%P). The operands are f32 bit
+// patterns whose low 13 mantissa bits the tensor cores do not read.
+#define HOPPER_WGMMA_TF32_SS(N, R, A, B, P)                                                   \
+  __device__ __forceinline__ void wgmma_tf32_ss(float(&d)[R], uint64_t desc_a, uint64_t desc_b, \
+                                                int scale_d) {                               \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #P ", 0;\n"                              \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 " HOPPER_LIST##R      \
+                 ", %" #A ", %" #B ", p, 1, 1;\n}\n"                                            \
+                 : HOPPER_ACC##R("+f")                                                         \
+                 : "l"(desc_a), "l"(desc_b), "r"(scale_d));                                    \
+  }
+HOPPER_WGMMA_TF32_SS(256, 128, 128, 129, 130)
+
+#undef HOPPER_WGMMA_TF32_SS
 #undef HOPPER_WGMMA_I8
 #undef HOPPER_WGMMA_BF16_RS
 #undef HOPPER_WGMMA_BF16_SS

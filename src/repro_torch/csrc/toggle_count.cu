@@ -1,14 +1,22 @@
-// Stream toggle counter for Hopper (sm_90a), bound with ctypes.
+// Stream toggle counters for Hopper (sm_90a), bound with ctypes.
 //
 // K5 stream_toggles replaces toggle_count_pallas
 //    (src/repro/kernels/toggle_count/kernel.py): the total number of bit
 //    flips along the time axis of a (T, L) stream of int32 or int64 values,
 //    sum over t < T - 1 and l < L of popcount((x[t, l] ^ x[t + 1, l]) & mask).
+// K3 strip_toggles replaces stream_strips_toggles_pallas
+//    (src/repro/kernels/activity_profile/kernel.py): the same count for each
+//    of S stacked (T1, L) int32 strips, one total per strip. A strip is the
+//    profiling pipeline's seeded window (kernels/activity_profile/batch.py):
+//    row 0 is the value just before the window, so every strip counts on
+//    its own and no transition crosses strips. It serves the
+//    output-stationary stream buckets and the weight-stationary horizontal
+//    pass.
 //
-// What bounds it on this card
+// What bounds them on this card
 //   Each value costs one logic op per 32-bit word and one or two popcounts,
 //   far below the card's integer and popcount rates (64 and 16 a clock on
-//   each SM) at 3.35 TB/s, so it is bound by bytes: the kernel has to read
+//   each SM) at 3.35 TB/s, so both are bound by bytes: a kernel has to read
 //   each value once, with enough loads in flight to keep HBM busy.
 //
 // The design
@@ -34,6 +42,22 @@
 //     and adds one 64-bit atomic into the output, which the C entry zeroes
 //     on the stream itself, so the caller allocates it uninitialised and
 //     no fill kernel is launched from PyTorch.
+//   * K3 runs the same column walk over every strip: its items are K5's
+//     items of each strip (lane group or lane, time chunk), and a block
+//     owns whole strips, several where a strip has fewer items than a
+//     block has threads (a long strip is cut into chunks that each read
+//     their seed row). So each strip's total is summed in the block (REDUX
+//     per warp, a shared-memory add per warp and strip) and written once:
+//     no atomic in device memory and no zeroing of the output (a memset is
+//     one more runtime call on the host and one more operation on the
+//     card, each as long as the kernel's own at these sizes). The time chunk is sized as for one stream of all the strips'
+//     steps, at least kStripMinChunk steps, and long enough that a strip
+//     has at most a block's worth of items where its lanes allow (a
+//     thread walks its block's items in turn otherwise). Its index
+//     arithmetic is 32-bit but for the strip's base address. (Before: one
+//     block per strip, each value loaded twice as a scalar, once itself
+//     and once as its successor's predecessor, and fewer blocks than one
+//     wave on the Table-I buckets.)
 //
 // What the TPU kernel did that this design drops
 //   * The wrapper passed the stream twice, x[:-1] and x[1:], which doubled
@@ -61,6 +85,7 @@ constexpr int kUnroll = 4;                 // 16-byte loads in flight per thread
 constexpr long long kItemsPerSm = 4096;    // (lane group, chunk) items per SM: two waves of 2048 threads
 constexpr long long kMinChunk = 16;        // time steps per item, at least
 constexpr long long kMaxChunk = 1 << 16;   // ... and at most, so a warp's count fits 32 bits
+constexpr long long kStripMinChunk = 4;    // K3's least steps per item (its strips are short)
 
 // The bus: the full 64-bit mask, and for int32 its low word and the number
 // of its bits above bit 31 (the sign copies).
@@ -155,9 +180,95 @@ stream_toggles_kernel(const T* __restrict__ x, unsigned long long* __restrict__ 
   }
 }
 
+// K3: block b owns strips [b * per_block, +per_block) and their items;
+// item i of the block is (strip i / per_strip, unit j % units, chunk j /
+// units) with j = i % per_strip. A warp walks items base + lane for base
+// = its first thread, + kThreads, ... (one step unless a strip has more
+// items than a block has threads).
+__global__ void __launch_bounds__(kThreads)
+strip_toggles_kernel(const int32_t* __restrict__ x, long long* __restrict__ out, int num_strips,
+                     int t1, int lanes, int head, int groups, int units, int t_chunk, int per_strip,
+                     int per_block, Bus bus) {
+  using V = Group<int32_t>::type;
+  constexpr int kGroupLanes = Group<int32_t>::lanes;
+  __shared__ unsigned long long sums[kThreads];  // per_block <= kThreads strips
+  const int first = blockIdx.x * per_block;
+  const int strips = min(per_block, num_strips - first);
+  const int items = strips * per_strip;
+  if (static_cast<int>(threadIdx.x) < strips) sums[threadIdx.x] = 0;
+  __syncthreads();
+  const int lane = threadIdx.x % 32;
+  for (int base = threadIdx.x - lane; base < items; base += kThreads) {
+    const int i = base + lane;
+    const int s = min(i, items - 1) / per_strip;
+    unsigned cnt = 0;
+    if (i < items) {
+      const int j = i - s * per_strip;
+      const int unit = j % units;
+      const int t0 = (j / units) * t_chunk + 1;
+      const int t_end = min(t0 + t_chunk, t1);
+      const int32_t* strip = x + static_cast<long long>(first + s) * t1 * lanes;
+      if (unit < groups) {
+        cnt = walk(reinterpret_cast<const V*>(strip + head) + unit, lanes / kGroupLanes, t0, t_end,
+                   bus);
+      } else {
+        int lane_at = unit - groups;
+        if (lane_at >= head) lane_at += groups * kGroupLanes;
+        cnt = walk(strip + lane_at, lanes, t0, t_end, bus);
+      }
+    }
+    // the strips of the warp's first and last items, alike in every lane
+    const int s0 = base / per_strip;
+    if (s0 == min(base + 31, items - 1) / per_strip) {
+      cnt = __reduce_add_sync(kFull, cnt);
+      if (lane == 0 && cnt) atomicAdd(&sums[s0], static_cast<unsigned long long>(cnt));
+    } else if (cnt) {
+      atomicAdd(&sums[s], static_cast<unsigned long long>(cnt));
+    }
+  }
+  __syncthreads();
+  if (static_cast<int>(threadIdx.x) < strips)
+    out[first + threadIdx.x] = static_cast<long long>(sums[threadIdx.x]);
+}
+
+// The lanes of a (t, lanes) stream of elem_bytes-wide values at `addr`: the
+// `head` lanes before the first 16-byte boundary, then `groups` 16-byte
+// lane groups, then the rest; every lane is scalar (head = lanes) where the
+// rows are not all aligned alike. `units` counts the groups and the scalar
+// lanes.
+struct Lanes {
+  long long head, groups, units;
+};
+
+Lanes lane_units(uintptr_t addr, long long lanes, int elem_bytes) {
+  const long long group_lanes = 16 / elem_bytes;
+  Lanes l{lanes, 0, 0};
+  if (lanes * elem_bytes % 16 == 0) {
+    l.head = static_cast<long long>((16 - addr % 16) % 16) / elem_bytes;
+    l.groups = (lanes - l.head) / group_lanes;
+  }
+  l.units = lanes - l.groups * (group_lanes - 1);
+  return l;
+}
+
+// Time steps per item for `work` (unit, step) pairs over streams of `steps`
+// steps: the grid holds about kItemsPerSm items for each SM, at least
+// `least` and at most kMaxChunk (and steps) steps each.
+long long time_chunk(long long work, long long steps, long long least) {
+  const long long target = hopper::sm_count(hopper::current_device()) * kItemsPerSm;
+  long long t_chunk = (work + target - 1) / target;
+  t_chunk = t_chunk < least ? least : (t_chunk > kMaxChunk ? kMaxChunk : t_chunk);
+  return t_chunk > steps ? steps : t_chunk;
+}
+
+Bus make_bus(unsigned long long mask) {
+  return Bus{mask, static_cast<unsigned>(mask),
+             static_cast<unsigned>(__builtin_popcountll(mask >> 32))};
+}
+
 }  // namespace
 
-// C entry point. `x` is a contiguous (t_len, lanes) device array of
+// C entry point of K5. `x` is a contiguous (t_len, lanes) device array of
 // elem_bytes-wide signed integers (4 or 8), aligned to its element; `out`
 // is one int64 that receives the total (zeroed here, on the stream, before
 // the launch). Returns the first CUDA error of the zeroing and the launch
@@ -168,19 +279,10 @@ extern "C" int stream_toggles(const void* x, void* out, long long t_len, long lo
   if (t_len < 2 || lanes < 1 || (elem_bytes != 4 && elem_bytes != 8)) return cudaErrorInvalidValue;
   const auto addr = reinterpret_cast<uintptr_t>(x);
   if (addr % elem_bytes != 0) return cudaErrorInvalidValue;
-  const long long group_lanes = 16 / elem_bytes;
-  long long head = lanes;  // every lane scalar, unless the rows are aligned alike
-  long long groups = 0;
-  if (lanes * elem_bytes % 16 == 0) {
-    head = static_cast<long long>((16 - addr % 16) % 16) / elem_bytes;
-    groups = (lanes - head) / group_lanes;
-  }
-  const long long units = lanes - groups * (group_lanes - 1);
+  const Lanes l = lane_units(addr, lanes, elem_bytes);
+  const long long head = l.head, groups = l.groups, units = l.units;
   const long long steps = t_len - 1;
-  const long long target = hopper::sm_count(hopper::current_device()) * kItemsPerSm;
-  long long t_chunk = (steps * units + target - 1) / target;
-  t_chunk = t_chunk < kMinChunk ? kMinChunk : (t_chunk > kMaxChunk ? kMaxChunk : t_chunk);
-  if (t_chunk > steps) t_chunk = steps;
+  const long long t_chunk = time_chunk(steps * units, steps, kMinChunk);
   const long long items = units * ((steps + t_chunk - 1) / t_chunk);
   const long long blocks = (items + kThreads - 1) / kThreads;
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
@@ -189,8 +291,7 @@ extern "C" int stream_toggles(const void* x, void* out, long long t_len, long lo
   auto* total = static_cast<unsigned long long*>(out);
   const cudaError_t zeroed = cudaMemsetAsync(total, 0, sizeof(*total), s);
   if (zeroed != cudaSuccess) return static_cast<int>(zeroed);
-  const Bus bus{mask, static_cast<unsigned>(mask),
-                static_cast<unsigned>(__builtin_popcountll(mask >> 32))};
+  const Bus bus = make_bus(mask);
   if (elem_bytes == 4) {
     stream_toggles_kernel<int32_t><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
         static_cast<const int32_t*>(x), total, t_len, lanes, head, groups, units, t_chunk, bus);
@@ -198,5 +299,40 @@ extern "C" int stream_toggles(const void* x, void* out, long long t_len, long lo
     stream_toggles_kernel<long long><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
         static_cast<const long long*>(x), total, t_len, lanes, head, groups, units, t_chunk, bus);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// C entry point of K3. `strips` is a contiguous (num_strips, t1, lanes)
+// device array of int32 aligned to its element; `out` receives one int64
+// per strip, every one written: the toggles on the low `bits` bits of the
+// sign-extended values (0 where t1 = 1, written by a memset). Returns the
+// first CUDA error of the launch (cudaErrorInvalidValue for arguments it
+// cannot take). Does not synchronise.
+extern "C" int strip_toggles(const void* strips, void* out, int num_strips, int t1, int lanes,
+                             int bits, void* stream) {
+  if (num_strips < 1 || t1 < 1 || lanes < 1 || bits < 1 || bits > 64) return cudaErrorInvalidValue;
+  const auto addr = reinterpret_cast<uintptr_t>(strips);
+  if (addr % 4 != 0) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (t1 < 2)
+    return static_cast<int>(cudaMemsetAsync(out, 0, sizeof(long long) * num_strips, s));
+  // A strip's rows are lanes * 4 bytes apart, so where they are 16-byte
+  // multiples every row of every strip is aligned as the first.
+  const Lanes l = lane_units(addr, lanes, 4);
+  const long long steps = t1 - 1;
+  // at least kStripMinChunk steps, and enough that a strip's items fit a
+  // block, but at most kMaxChunk, so that a warp's count fits 32 bits
+  long long least = (steps * l.units + kThreads - 1) / kThreads;
+  least = least < kStripMinChunk ? kStripMinChunk : (least > kMaxChunk ? kMaxChunk : least);
+  const long long t_chunk = time_chunk(steps * l.units * num_strips, steps, least);
+  const long long per_strip = l.units * ((steps + t_chunk - 1) / t_chunk);
+  if (per_strip > INT_MAX - kThreads) return cudaErrorInvalidValue;
+  const int per_block = per_strip >= kThreads ? 1 : kThreads / static_cast<int>(per_strip);
+  const unsigned blocks = static_cast<unsigned>((num_strips + per_block - 1) / per_block);
+  const unsigned long long mask = bits >= 64 ? ~0ull : (1ull << bits) - 1ull;
+  strip_toggles_kernel<<<blocks, kThreads, 0, s>>>(
+      static_cast<const int32_t*>(strips), static_cast<long long*>(out), num_strips, t1, lanes,
+      static_cast<int>(l.head), static_cast<int>(l.groups), static_cast<int>(l.units),
+      static_cast<int>(t_chunk), static_cast<int>(per_strip), per_block, make_bus(mask));
   return static_cast<int>(cudaGetLastError());
 }

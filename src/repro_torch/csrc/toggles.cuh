@@ -1,6 +1,6 @@
 // Bus-toggle arithmetic of the weight-stationary toggle counters: K1
 // (activity_profile.cu) and K2 (activity_batch.cu) count the transitions of
-// partial sums held in registers with these, K3 masks with bus_mask.
+// partial sums held in registers with these.
 //
 // A bus of b bits carries the low b bits of a value's two's-complement
 // representation. A partial sum is a sign-extended int64, so the toggles of
@@ -13,12 +13,6 @@
 #include <cstdint>
 
 namespace toggles {
-
-// The low `bits` bits set; 1ull << 64 is undefined, so the full bus is its
-// own case.
-__device__ __forceinline__ unsigned long long bus_mask(int bits) {
-  return bits >= 64 ? ~0ull : ((1ull << bits) - 1ull);
-}
 
 // Toggles of a sign-extended int32 XOR `d` on a bus of low-word mask `lo`
 // and `hi_bits` bits above bit 31 (all copies of bit 31).

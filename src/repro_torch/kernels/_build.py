@@ -43,17 +43,15 @@ SOURCES: dict[str, dict[str, tuple[list, type]]] = {
         # strips, w_tiles, strip_ids, w_ids, valid_r, out,
         # num_tasks, num_strips, num_tiles, t1, rows, cols, b_v, stream
         "ws_task_toggles": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
-        # strips, out, num_strips, t1, lanes, bits, stream
-        "strip_toggles": ([_P, _P, _I, _I, _I, _I, _P], _I),
     },
     "toggle_count": {
         # x, out, t_len, lanes, elem_bytes, mask, stream
         "stream_toggles": ([_P, _P, _L, _L, _I, _U64, _P], _I),
+        # strips, out, num_strips, t1, lanes, bits, stream
+        "strip_toggles": ([_P, _P, _I, _I, _I, _I, _P], _I),
     },
     "ws_matmul": {
-        # a, w, out, m, k, n, dtype (2 bf16, 3 f32), stream
-        "ws_matmul": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
-        # a, w, planes, out, m, k, n, dtype, stream
+        # a, w, planes, out, m, k, n, dtype (0 int8, 1 int16, 2 bf16, 3 f32), stream
         "ws_gemm_tc": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
         # a, w, a_planes, w_planes, m, k, n, kp, dtype, stream
         "gemm_operand_planes": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),

@@ -13,15 +13,17 @@ Four kernels, written for Hopper.  Two per-GEMM kernels:
     launches K5's kernel (``csrc/toggle_count.cu`` ``stream_toggles``) and
     keeps a count of its own.
 
-and two batched kernels of the profiling pipeline in
-``csrc/activity_batch.cu``, over the stacked seeded windows of
-``repro_torch.kernels.activity_profile.batch``:
+and two batched kernels of the profiling pipeline, over the stacked
+seeded windows of ``repro_torch.kernels.activity_profile.batch``:
 
-  * K2 ``ws_task_toggles`` replaces ``activity_profile_pallas_tasks``: the
-    vertical-bus toggles of each stacked weight-stationary segment task.
+  * K2 ``ws_task_toggles`` (``csrc/activity_batch.cu``) replaces
+    ``activity_profile_pallas_tasks``: the vertical-bus toggles of each
+    stacked weight-stationary segment task.
   * K3 ``strip_toggles`` replaces ``stream_strips_toggles_pallas``: the
     toggles of each stacked stream window (OS operand streams, and the WS
-    horizontal pass).
+    horizontal pass).  A window is a (T1, L) stream whose row 0 seeds it,
+    so K3 runs K5's column walk over each window
+    (``csrc/toggle_count.cu`` ``strip_toggles``).
 
 The note at the top of each source says what bounds each kernel on the
 card and what its design does about it.  Each wrapper takes int32 tensors
@@ -392,9 +394,9 @@ def strip_toggles(strips: torch.Tensor, bits: int) -> torch.Tensor:
     num_strips, t1, lanes = strips.shape
     if num_strips == 0 or t1 < 2 or lanes == 0:
         return torch.zeros(num_strips, dtype=torch.int64, device=strips.device)
-    out = torch.empty(num_strips, dtype=torch.int64, device=strips.device)
+    out = torch.empty(num_strips, dtype=torch.int64, device=strips.device)  # the kernel writes all
     launch(
-        "activity_batch", "strip_toggles", strips.device,
+        "toggle_count", "strip_toggles", strips.device,
         strips.data_ptr(), out.data_ptr(), num_strips, t1, lanes, bits,
     )
     strip_toggles.launches += 1

@@ -9,10 +9,11 @@ and a contiguous tensor already there is used in place.
 
 Deliberate differences from the reference: no ``block_m``/``block_n``/
 ``block_k`` arguments (TPU tiling knobs) and no zero padding of M and N:
-the kernels read zeros past the ragged edges (only the integer route's
-operand planes pad K).  On the card the kernel is chosen by type and shape
-(``kernel.gemm_route``): int8, int16 and bf16 with K and N multiples of 8
-run on the tensor cores, f32 and other bf16 on the CUDA cores.
+the kernels read zeros past the ragged edges (only the operand planes pad
+K).  On the card every type runs on the tensor cores, by
+a route chosen by type and shape (``kernel.gemm_route``): int8, int16 and
+bf16 with K and N multiples of 8 on the "tc" route, f32 (three TF32
+products) and other bf16 on the "tf32" route.
 """
 
 from __future__ import annotations

@@ -35,6 +35,8 @@ from repro_torch.runtime import faults
 
 pytestmark = pytest.mark.cuda
 
+F32_MAX = float(torch.finfo(torch.float32).max)
+
 CASES = [
     (7, 5, 3, 32, 32, 16, 37),
     (100, 37, 29, 16, 8, 8, 20),
@@ -171,6 +173,29 @@ def test_task_and_strip_kernels_match_plain(card, rows, cols, b_h, b_v):
     assert v.tolist() == plain_v.tolist()
     assert v[-2] == 0 and v[-1] == -1  # dummy task, bad strip id
     assert h.tolist() == K.strip_toggles_plain(strips, b_h).tolist()
+
+
+# K3 at the edges of K5's column walk: lanes 1, 3 and 5 (scalar lanes; not
+# multiples of 4), 4, 8 and 32 (16-byte groups), t1 = 2, one strip and
+# many, strips of several time chunks; then the same at a base offset of
+# one element, where 16-byte rows start with scalar head lanes.
+K3_EDGES = [(1, 2, 1), (1, 2, 3), (3, 2, 5), (1, 9, 3), (4, 17, 5), (2, 40, 4), (7, 129, 8),
+            (1, 300, 5), (720, 129, 32), (33, 1000, 7)]
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("shape", K3_EDGES)
+def test_strip_kernel_at_its_walk_edges(card, shape, offset):
+    rng = np.random.default_rng(list(shape) + [offset])
+    flat = rng.integers(-32768, 32768, size=int(np.prod(shape)) + offset).astype(np.int32)
+    strips = torch.from_numpy(flat).to(card)[offset:].view(shape)
+    assert strips.is_contiguous() and (strips.data_ptr() % 16 != 0) == (offset > 0)
+    for bits in (1, 16, 33, 64):
+        before = K.strip_toggles.launches
+        got = [K.strip_toggles(strips, bits).tolist() for _ in range(2)]  # into torch.empty
+        torch.cuda.synchronize()
+        assert K.strip_toggles.launches == before + 2
+        assert got[0] == got[1] == K.strip_toggles_plain(strips, bits).tolist()
 
 
 # K2 at its edges: every run layout of the kernel (runs of 16 at t_seg 16,
@@ -412,10 +437,11 @@ def test_toggle_count_entry_points_on_the_card(card):
     assert stream_toggle_count(vals[:1]) == 0
 
 
-COUNTERS = {"tc": "tc_launches", "simt": "simt_launches"}
+COUNTERS = {"tc": "tc_launches", "tf32": "tf32_launches"}
 
 
-def _counts(fn, names=("launches", "tc_launches", "simt_launches", "prep_launches")):
+def _counts(fn, names=("launches", "tc_launches", "tf32_launches", "simt_launches",
+                       "prep_launches")):
     return {name: getattr(fn, name) for name in names if hasattr(fn, name)}
 
 
@@ -439,16 +465,29 @@ def test_ws_gemm_int_matches_plain(card, m, k, n, dtype):
     assert torch.equal(got, WM.ws_gemm_plain(a, w))
 
 
+def _bits(x):
+    """The bits of a tensor, so that planes holding NaN compare too."""
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
 @pytest.mark.parametrize("m,k,n", [(37, 70, 45), (1, 1, 1), (0, 70, 45), (5, 33, 0)])
-@pytest.mark.parametrize("dtype", [torch.int8, torch.int16])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int16, torch.bfloat16, torch.float32])
 def test_operand_planes_match_plain(card, dtype, m, k, n):
     rng = np.random.default_rng(7)
-    info = torch.iinfo(dtype)
-    a = torch.from_numpy(rng.integers(info.min, info.max + 1, size=(m, k))).to(dtype).to(card)
-    w = torch.from_numpy(rng.integers(info.min, info.max + 1, size=(k, n))).to(dtype).to(card)
+    if dtype.is_floating_point:  # with inf, NaN and values near f32's largest
+        a, w = (torch.from_numpy(rng.normal(size=shape) * 2.0 ** rng.integers(-40, 40, size=shape))
+                .float() for shape in ((m, k), (k, n)))
+        if m and k:
+            a[0, 0], a[-1, -1] = np.inf, np.nan
+            a[m // 2, k // 2] = -F32_MAX
+        a, w = a.to(dtype).to(card), w.to(dtype).to(card)
+    else:
+        info = torch.iinfo(dtype)
+        a = torch.from_numpy(rng.integers(info.min, info.max + 1, size=(m, k))).to(dtype).to(card)
+        w = torch.from_numpy(rng.integers(info.min, info.max + 1, size=(k, n))).to(dtype).to(card)
     got = WM.gemm_operand_planes(a, w)
     for g, p in zip(got, WM.gemm_operand_planes_plain(a, w)):
-        assert torch.equal(g, p)
+        assert g.dtype == p.dtype and torch.equal(_bits(g), _bits(p))
 
 
 def test_ws_gemm_wraps_mod_2_32(card):
@@ -467,12 +506,20 @@ def test_ws_gemm_wraps_mod_2_32(card):
 @pytest.mark.parametrize(
     "route,dtype,m,k,n",
     [
-        ("simt", torch.float32, 130, 260, 140),
-        ("simt", torch.float32, 64, 512, 64),
-        ("simt", torch.float32, 1, 3, 300),
-        ("simt", torch.bfloat16, 130, 260, 140),  # K, N not multiples of 8: the CUDA cores
-        ("simt", torch.bfloat16, 64, 500, 64),  # K % 8 != 0
-        ("simt", torch.bfloat16, 1, 3, 300),
+        ("tf32", torch.float32, 130, 260, 140),
+        ("tf32", torch.float32, 64, 512, 64),
+        ("tf32", torch.float32, 1, 3, 300),
+        # ragged f32: K in {1, 7, 33}, N in {1, 129}, M in {1, 130}
+        ("tf32", torch.float32, 1, 1, 1),
+        ("tf32", torch.float32, 130, 7, 129),
+        ("tf32", torch.float32, 130, 33, 1),
+        ("tf32", torch.float32, 1, 33, 129),
+        ("tf32", torch.float32, 130, 1, 129),
+        ("tf32", torch.float32, 300, 4100, 520),  # several K slices and N tiles
+        ("tf32", torch.bfloat16, 130, 260, 140),  # K, N not multiples of 8: TF32 planes
+        ("tf32", torch.bfloat16, 64, 500, 64),  # K % 8 != 0
+        ("tf32", torch.bfloat16, 1, 3, 300),
+        ("tf32", torch.bfloat16, 130, 7, 129),
         ("tc", torch.bfloat16, 64, 512, 64),
         ("tc", torch.bfloat16, 130, 264, 136),  # ragged M, N not a tile multiple
         ("tc", torch.bfloat16, 256, 512, 384),
@@ -500,9 +547,9 @@ def test_ws_gemm_float_matches_plain(card, route, dtype, m, k, n):
         (torch.int8, 129, 7, "tc"),
         (torch.int16, 64, 64, "tc"),
         (torch.bfloat16, 64, 64, "tc"),
-        (torch.bfloat16, 60, 64, "simt"),
-        (torch.bfloat16, 64, 60, "simt"),
-        (torch.float32, 64, 64, "simt"),
+        (torch.bfloat16, 60, 64, "tf32"),
+        (torch.bfloat16, 64, 60, "tf32"),
+        (torch.float32, 64, 64, "tf32"),
     ],
 )
 def test_ws_matmul_takes_the_route_of_its_type_and_shape(card, dtype, k, n, route):
@@ -516,6 +563,67 @@ def test_ws_matmul_takes_the_route_of_its_type_and_shape(card, dtype, k, n, rout
     assert after[COUNTERS[route]] == before[COUNTERS[route]] + 1
     assert after["launches"] == before["launches"] + 1
     assert bool((got == k).all())
+
+
+def _gemm_on_its_route(a, w):
+    """ws_gemm on the route of its type and shape, its counter checked, and
+    its plain version."""
+    route = WM.gemm_route(a.dtype, *a.shape, w.shape[1])
+    before = _counts(WM.ws_gemm)
+    got = WM.ws_gemm(a, w)
+    torch.cuda.synchronize()
+    after = _counts(WM.ws_gemm)
+    assert after[COUNTERS[route]] == before[COUNTERS[route]] + 1
+    assert after["launches"] == before["launches"] + 1
+    return got, WM.ws_gemm_plain(a, w)
+
+
+@pytest.mark.parametrize("dtype,m,k,n", [(torch.float32, 130, 33, 129), (torch.float32, 64, 64, 64),
+                                         (torch.bfloat16, 64, 64, 64), (torch.bfloat16, 33, 70, 9)])
+def test_ws_gemm_on_offset_views(card, dtype, m, k, n):
+    """Operands that are views at an offset of one element, so their
+    data_ptr is not 16-byte aligned."""
+    gen = torch.Generator().manual_seed(m + k + n)
+    flat_a = torch.randn(m * k + 1, generator=gen).to(dtype).to(card)
+    flat_w = torch.randn(k * n + 1, generator=gen).to(dtype).to(card)
+    a, w = flat_a[1:].view(m, k), flat_w[1:].view(k, n)
+    assert a.data_ptr() % 16 and w.data_ptr() % 16
+    got, plain = _gemm_on_its_route(a, w)
+    assert ((got - plain).abs() <= 1e-5 * (a.float().abs() @ w.float().abs())).all()
+
+
+def test_ws_gemm_f32_near_the_largest_value(card):
+    """Operands near f32's largest value, whose TF32 big must not round to
+    inf, against small ones: finite products within the tolerance."""
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(F32_MAX * rng.uniform(0.5, 1.0, size=(130, 40))).float()
+    a[:, 0] = F32_MAX
+    a[::2] *= -1
+    w = torch.from_numpy(rng.normal(size=(40, 129)) * 2.0**-20).float()
+    a, w = a.to(card), w.to(card)
+    got, plain = _gemm_on_its_route(a, w)
+    assert torch.isfinite(plain).all() and torch.isfinite(got).all()
+    assert ((got - plain).abs() <= 1e-5 * (a.abs() @ w.abs())).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ws_gemm_non_finite_entries(card, dtype):
+    """inf and NaN give what the f32 product gives: +-inf, NaN for inf * 0
+    and inf - inf, NaN from NaN; the finite outputs within the tolerance."""
+    rng = np.random.default_rng(4)
+    a = torch.from_numpy(rng.normal(size=(70, 33))).float()
+    w = torch.from_numpy(rng.normal(size=(33, 40))).float()
+    w[:, :4] = torch.round(w[:, :4])  # values that TF32 holds exactly, and zeros
+    a[3, 5], a[7, 0], a[9, 9] = np.inf, -np.inf, np.nan
+    w[11, 6], w[2, 7] = np.inf, -np.inf
+    a, w = a.to(dtype).to(card), w.to(dtype).to(card)
+    got, plain = _gemm_on_its_route(a, w)
+    assert torch.equal(got.isnan(), plain.isnan()) and plain.isnan().any()
+    inf = plain.isinf()
+    assert inf.any() and torch.equal(got.isinf(), inf) and torch.equal(got[inf], plain[inf])
+    finite = torch.isfinite(plain)
+    scale = (a.float().abs() @ w.float().abs())[finite]
+    assert ((got[finite] - plain[finite]).abs() <= 1e-5 * scale).all()
 
 
 @pytest.mark.parametrize("d", [32, 64, 128])

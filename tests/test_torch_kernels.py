@@ -31,7 +31,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro.kernels.activity_profile.kernel import activity_profile_pallas_tasks
+from repro.kernels.activity_profile.kernel import (
+    activity_profile_pallas_tasks,
+    stream_strips_toggles_pallas,
+)
 from repro.kernels.flash_attention.ops import flash_attention as ref_flash_attention
 from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref
 from repro.kernels.toggle_count.ops import stream_activity as ref_stream_activity
@@ -69,6 +72,7 @@ from _torch_reference import REFERENCE_PATH
 
 RNG = np.random.default_rng(0)
 FLOAT_REL_TOL = 1e-5
+F32_MAX = float(torch.finfo(torch.float32).max)
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = dict(rtol=5e-2, atol=5e-2)
 
@@ -289,6 +293,23 @@ def test_k2_plain_in_time_runs_matches_reference_tasks(t_seg, run_t):
     assert AK.ws_task_toggles_plain(*t, 37, run_t=run_t, task_chunk=5).tolist() == want
 
 
+# K3 at the edges of its column walk: lanes 1, 3 and 5 (scalar lanes; 5 is
+# not a multiple of 4), 4 and 8 (16-byte groups), t1 = 2 (one transition),
+# one strip and many, and strips of more than one time chunk.
+K3_EDGES = [(1, 2, 1), (1, 2, 3), (3, 2, 5), (1, 9, 3), (4, 17, 5), (2, 40, 4), (7, 129, 8),
+            (1, 300, 5)]
+
+
+@pytest.mark.parametrize("bits", [16, 37, 64])
+@pytest.mark.parametrize("shape", K3_EDGES)
+def test_k3_plain_version_at_its_walk_edges(shape, bits):
+    strips = RNG.integers(-32768, 32768, size=shape).astype(np.int32)
+    got = AK.strip_toggles_plain(torch.from_numpy(strips), bits)
+    want = np.asarray(stream_strips_toggles_pallas(strips, bits=bits, interpret=True))
+    assert got.tolist() == want.astype(np.int64).tolist()
+    assert got.tolist() == [_bits_of(x.astype(np.int64), bits) for x in strips]
+
+
 def test_table1_operand_streams_recount_the_reference():
     """K5's plain version recounts the horizontal (WS, OS) and vertical (OS)
     toggles of every Table-I layer from its operand streams: WS h =
@@ -482,10 +503,12 @@ def test_planes_recombine_through_the_wrap(k_splits):
         (torch.int16, 300, 170, "tc"),
         (torch.bfloat16, 64, 64, "tc"),
         (torch.bfloat16, 8, 8, "tc"),
-        (torch.bfloat16, 260, 140, "simt"),
-        (torch.bfloat16, 264, 130, "simt"),
-        (torch.float32, 64, 64, "simt"),
-        (torch.float32, 3, 300, "simt"),
+        (torch.bfloat16, 260, 140, "tf32"),
+        (torch.bfloat16, 264, 130, "tf32"),
+        (torch.bfloat16, 7, 1, "tf32"),
+        (torch.float32, 64, 64, "tf32"),
+        (torch.float32, 3, 300, "tf32"),
+        (torch.float32, 33, 129, "tf32"),
     ],
 )
 def test_gemm_route_by_type_and_strides(dtype, k, n, route):
@@ -497,18 +520,118 @@ def test_gemm_routes_on_cpu_tensors_run_the_plain_version():
     a = torch.from_numpy(RNG.integers(-300, 300, size=(9, 16))).to(torch.int16)
     w = torch.from_numpy(RNG.integers(-300, 300, size=(16, 8))).to(torch.int16)
     before = {attr: getattr(WM.ws_gemm, attr)
-              for attr in ("launches", "tc_launches", "simt_launches", "prep_launches")}
+              for attr in ("launches", "tc_launches", "tf32_launches", "prep_launches")}
     for x, y in ((a, w), (a.float(), w.float()), (a.bfloat16(), w.bfloat16())):
-        assert WM.gemm_route(x.dtype, 9, 16, 8) == ("simt" if x.dtype == torch.float32 else "tc")
+        assert WM.gemm_route(x.dtype, 9, 16, 8) == ("tf32" if x.dtype == torch.float32 else "tc")
         assert torch.equal(WM.ws_gemm(x, y), WM.ws_gemm_plain(x, y))
+        planes = WM.gemm_operand_planes(x, y)
+        assert all(torch.equal(p, q) for p, q in zip(planes, WM.gemm_operand_planes_plain(x, y)))
     assert torch.equal(WM.ws_gemm(a, w), ws_matmul_ref(a, w))
-    planes = WM.gemm_operand_planes(a, w)
-    assert all(torch.equal(x, y) for x, y in zip(planes, WM.gemm_operand_planes_plain(a, w)))
     assert all(getattr(WM.ws_gemm, attr) == n for attr, n in before.items())
     with pytest.raises(TypeError):
         WM.gemm_route(torch.int32, 1, 1, 1)
-    with pytest.raises(TypeError, match="int8 and int16"):
-        WM.gemm_operand_planes(a.float(), w.float())
+    with pytest.raises(TypeError):
+        WM.gemm_operand_planes(a.int(), w.int())
+
+
+# The f32 route's planes: x = big + small + r, each of big and small a TF32
+# value (an f32 whose low 13 mantissa bits are zero), |r| <= 2^-22 |x|
+# where small is a normal f32 (|x| >= 2^-115), else |r| <= 2^-137, half the
+# step of a subnormal TF32 value. Cases: seeded normal values at several
+# scales, values near f32's largest (whose big must not round to inf) and
+# near its smallest normal (where small is subnormal).
+TF32_CASES = {
+    "normal": lambda shape: RNG.normal(size=shape),
+    "wide exponents": lambda shape: RNG.normal(size=shape) * 2.0 ** RNG.integers(-60, 60, size=shape),
+    "near the maximum": lambda shape: F32_MAX * RNG.uniform(0.5, 1.0, size=shape),
+    "near the smallest normal": lambda shape: 1.2e-38 * RNG.uniform(1.0, 4.0, size=shape),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TF32_CASES))
+def test_tf32_planes_split_every_value(case):
+    a = torch.from_numpy(TF32_CASES[case]((37, 45)).astype(np.float32))
+    a[0, :4] = torch.tensor([F32_MAX, -F32_MAX, 0.0, -0.0])
+    w = torch.from_numpy(TF32_CASES[case]((45, 5)).astype(np.float32))
+    a_planes, w_planes = WM.gemm_operand_planes_plain(a, w)
+    assert a_planes.shape == (2, 37, 64) and w_planes.shape == (2, 5, 64)
+    assert a_planes.dtype == w_planes.dtype == torch.float32
+    for planes, x in ((a_planes, a), (w_planes, w.t())):
+        assert not planes[:, :, 45:].any()  # K padded with zeros
+        big, small = planes[:, :, :45].double()
+        assert torch.isfinite(big).all() and torch.isfinite(small).all()
+        for part in planes:
+            assert not (part.view(torch.int32) & 0x1FFF).any()  # TF32 values
+        x = x.double()
+        assert ((x - big - small).abs() <= (2.0**-22 * x.abs()).clamp(min=2.0**-137)).all()
+        assert ((x - big).abs() <= 2.0**-10 * x.abs()).all()
+    # rounding to nearest, ties away from zero, on the bits
+    ties = torch.tensor([1 + 2**-11, -(1 + 2**-11), 1 + 2**-11 - 2**-23], dtype=torch.float32)
+    assert WM.round_tf32(ties).tolist() == [1 + 2**-10, -(1 + 2**-10), 1.0]
+
+
+def test_tf32_planes_carry_non_finite_values_in_small():
+    """inf and NaN go whole into small and big keeps their sign as +-1 (with
+    small = 0 a_b.w_s would be inf * 0 = NaN for every w that TF32 holds
+    exactly); bf16 takes one plane, its values, which TF32 holds exactly."""
+    a = torch.tensor([[np.inf, -np.inf, np.nan, 1.5]], dtype=torch.float32)
+    w = torch.ones((4, 1))
+    (big, small), _ = WM.gemm_operand_planes_plain(a, w)
+    assert big[0, :4].tolist() == [1.0, -1.0, 1.0, 1.5]
+    assert small[0, :3].isinf().tolist() == [True, True, False] and small[0, 2].isnan()
+    assert small[0, :2].tolist() == [np.inf, -np.inf] and small[0, 3] == 0
+    b = torch.from_numpy(RNG.normal(size=(9, 7))).to(torch.bfloat16)
+    a_planes, w_planes = WM.gemm_operand_planes_plain(b, b.t().contiguous())
+    assert a_planes.shape == w_planes.shape == (1, 9, 32) and a_planes.dtype == torch.float32
+    assert torch.equal(a_planes[0, :, :7], b.float()) and torch.equal(w_planes[0, :, :7], b.float())
+    assert not (a_planes.view(torch.int32) & 0x1FFF).any()
+
+
+def _three_products(a, w):
+    """The f32 route's arithmetic on the plain planes, in float64:
+    a_s.w_b + a_b.w_s + a_b.w_b."""
+    (ab, as_), (wb, ws) = (x.double() for x in WM.gemm_operand_planes_plain(a, w))
+    return as_ @ wb.t() + ab @ ws.t() + ab @ wb.t()
+
+
+@pytest.mark.parametrize("case", ["normal", "wide exponents", "near the maximum"])
+@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (130, 7, 129), (33, 300, 40)])
+def test_three_tf32_products_meet_the_f32_tolerance(case, m, k, n):
+    a = TF32_CASES[case]((m, k)).astype(np.float32)
+    w = TF32_CASES[case]((k, n)).astype(np.float32)
+    if case == "near the maximum":
+        w = (w / F32_MAX * 2.0**-20).astype(np.float32)  # finite products
+    got = _three_products(torch.from_numpy(a), torch.from_numpy(w))
+    exact = a.astype(np.float64) @ w.astype(np.float64)
+    scale = np.abs(a.astype(np.float64)) @ np.abs(w.astype(np.float64))
+    assert np.isfinite(got.numpy()).all()
+    assert (np.abs(got.numpy() - exact) <= FLOAT_REL_TOL * scale).all()
+    one = (a.astype(np.float64) @ WM.round_tf32(torch.from_numpy(w)).double().numpy())
+    if case == "normal" and k > 100:  # one TF32 product alone would not
+        assert not (np.abs(one - exact) <= FLOAT_REL_TOL * scale).all()
+
+
+def test_three_tf32_products_lose_bits_below_2_to_the_minus_120():
+    """The route's known limit: below 2^-115 small is subnormal, and below
+    about 2^-120 the dropped bits (up to 2^-137 a value) exceed 1e-5 of the
+    value, so products of such values miss the f32 tolerance (they stay
+    within 2^-137 * |w| a term)."""
+    a = (1.2e-38 * RNG.uniform(1.0, 4.0, size=(9, 40))).astype(np.float32)
+    w = RNG.normal(size=(40, 6)).astype(np.float32)
+    got = _three_products(torch.from_numpy(a), torch.from_numpy(w)).numpy()
+    exact = a.astype(np.float64) @ w.astype(np.float64)
+    scale = np.abs(a.astype(np.float64)) @ np.abs(w.astype(np.float64))
+    assert not (np.abs(got - exact) <= FLOAT_REL_TOL * scale).all()
+    assert (np.abs(got - exact) <= 2.0**-137 * (np.abs(w).sum(axis=0) * 3)).all()
+
+
+def test_three_tf32_products_give_inf_and_nan_as_f32():
+    a = torch.tensor([[np.inf, 1.0], [-np.inf, 1.0], [np.nan, 1.0], [0.0, 1.0], [np.inf, 0.0]])
+    w = torch.tensor([[1.0, 0.0, -2.5, np.inf], [1.0, 1.0, 1.0, 1.0]])
+    want = a @ w
+    got = _three_products(a, w).float()
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(0.0), want.nan_to_num(0.0))
 
 
 # ---------------------------------------------------------------------------

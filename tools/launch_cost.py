@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Host cost of one K5 (``stream_toggles``) call on a CUDA card, piece by piece.
+"""Host cost of one K5 (``stream_toggles``) call on a CUDA card, piece by piece,
+and of one K3 (``strip_toggles``) call.
 
     python3 tools/launch_cost.py
 
@@ -9,7 +10,10 @@ with the drain is the same where the host is the bound).  The stream is
 ResNet50 Table-I layer L1's transposed activations, 256 x 3136 int32, on a
 16-bit bus.  Besides the whole wrapper it times the wrapper's parts, and a
 launch that builds a ``torch.cuda.Stream`` and always enters the device
-context, to compare with ``_engine.launch``.
+context, to compare with ``_engine.launch``.  K3 runs on 720 strips of 129 x
+32 int32 (the shape of the Table-I WS strips), whole and as its C entry
+alone, looked up in whichever source holds it, so that the tool runs
+unchanged in another tree of the repository.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ def main() -> None:
         sys.exit("tools/launch_cost.py: needs a CUDA card")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build, _engine
+    from repro_torch.kernels.activity_profile import kernel as K
     from repro_torch.kernels.bitops import bus_mask
     from repro_torch.kernels.toggle_count import kernel as TC
 
@@ -64,6 +69,16 @@ def main() -> None:
         ("torch.empty(1, int64) on the card", lambda: torch.empty(1, dtype=torch.int64, device=dev)),
         ("torch.zeros(1, int64) on the card", lambda: torch.zeros(1, dtype=torch.int64, device=dev)),
         ("the wrapper's checks", lambda: TC._check_stream(x, 16)),
+    ]
+    strips = torch.randint(-1000, 1000, (720, 129, 32), dtype=torch.int32, device=dev)
+    k3_out = torch.empty(720, dtype=torch.int64, device=dev)
+    k3_source = next(name for name, entries in _build.SOURCES.items() if "strip_toggles" in entries)
+    k3 = _build.load(k3_source).strip_toggles
+    cases += [
+        ("strip_toggles (K3, the whole wrapper)", lambda: K.strip_toggles(strips, 16)),
+        (f"the K3 C entry alone ({k3_source}.cu)",
+         lambda: k3(strips.data_ptr(), k3_out.data_ptr(), 720, 129, 32, 16,
+                    torch._C._cuda_getCurrentRawStream(0))),
     ]
     calls = 3000
     for name, call in cases:
