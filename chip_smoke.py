@@ -10,10 +10,11 @@ Phases (any mismatch exits non-zero; nothing is caught):
    ``src/repro_torch/csrc`` (one ``nvcc`` per source, all started
    together), print the build time and each kernel's registers and spills,
    and check with ``cuobjdump -sass`` that the tensor-core kernels hold
-   ``HGMMA`` (bf16), ``IGMMA`` (int8) and, in K6, TF32 ``HGMMA``
-   instructions; print the ``POPC``, ``SHFL``, 128-bit ``LDG`` and
-   ``REDUX`` counts of K1, K2, K3 and K5 (none may hold a shuffle or spill,
-   and K3 and K5 must hold 16-byte loads).
+   ``HGMMA`` (bf16), ``IGMMA`` (int8) and, in K6 and K7's f32 kernel, TF32
+   ``HGMMA`` instructions; print the ``POPC``, ``SHFL``, 128-bit ``LDG``
+   and ``REDUX`` counts of K1, K2, K3 and K5 (none may hold a shuffle, and
+   K3 and K5 must hold 16-byte loads); K1, K2, K3, K5 and K7's f32 kernel
+   may not spill.
 2. Hold each kernel against its plain PyTorch version on the card, element
    for element: K1 and K4 (K4's wrapper launches K5's kernel) on the
    reference test matrices and on every ResNet50 Table-I layer (and the
@@ -36,8 +37,10 @@ Phases (any mismatch exits non-zero; nothing is caught):
    K and N multiples of 8 on the "tc" route, f32 (three TF32 products) and
    the other bf16 on the "tf32" route, also at ragged shapes, on offset
    views, near f32's largest value and with inf and NaN entries. K7 runs
-   bf16 on the tensor cores (``flash_attention_tc``) and f32 on the CUDA
-   cores (``flash_attention_fwd``).
+   both types on the tensor cores: bf16 (``flash_attention_tc``) and f32
+   as three TF32 products (``flash_attention_tf32``, after its prep kernel
+   ``attention_operand_planes``, held against its plain version bit for
+   bit), f32 also on offset views.
 3. The two main paths, on the paper's 32x32 array with int16 operands, WS
    and OS, each with every kernel count set to 0 just before it and read
    just after:
@@ -81,13 +84,16 @@ Phases (any mismatch exits non-zero; nothing is caught):
    each.  K6 is timed in f32 on the "tf32" route at the Qwen3-8B MLP
    (seeded f32 operands, held to 1e-5 * (|a| @ |w|) there) beside
    ``torch.matmul`` in full f32, with the bound of three TF32 products and
-   that of the f32 CUDA-core rate; K7 in f32 on the CUDA cores at both
-   attention cases, each beside SDPA in f32.
+   that of the f32 CUDA-core rate; K7 in f32 on its "tf32" route at both
+   attention cases (seeded f32 inputs, held there to 1e-5 of its plain
+   version and to the reference's 2e-5 of a float64 rendering), each beside
+   SDPA in f32, with the same two bounds, and its prep kernel also by
+   device time.
 5. Trace each main path once more with ``torch.profiler`` and print the
    device's busy share and the device time of each kernel and copy.
 
-The last lines are the ``kernels`` JSON object (every kernel; K6's "tf32"
-route and the CUDA-core K7 with no launch on the main path), the
+The last lines are the ``kernels`` JSON object (every kernel; K6's and
+K7's "tf32" routes and K7's prep kernel with no launch on the main path), the
 ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when no
 CUDA device is available or when the repository's ``src/`` is missing.
@@ -107,9 +113,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 REL_TOL = 1e-12
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at the 700 W
-# limit): HBM bytes/s; the float32 CUDA-core rate (the CUDA-core K7, and
-# K6 f32 as the CUDA cores would bound it); and the tensor-core rates for
-# bf16, TF32 (K6 f32: three TF32 products) and int8.
+# limit): HBM bytes/s; the float32 CUDA-core rate (K6 and K7 f32 as the
+# CUDA cores would bound them); and the tensor-core rates for bf16, TF32
+# (K6 and K7 f32: three TF32 products) and int8.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 PEAK_BF16_FLOPS = 989e12
@@ -126,13 +132,17 @@ POPC_PER_CLOCK_SM = 16
 PROFILER_OWN_EVENTS = ("Activity Buffer Request",)
 KERNELS = (
     "ws_activity_toggles", "ws_task_toggles", "strip_toggles", "operand_stream_toggles",
-    "stream_toggles", "ws_gemm_tf32", "flash_attention_fwd",
+    "stream_toggles", "ws_gemm_tf32", "flash_attention_tf32", "attention_operand_planes",
     "ws_gemm_tc", "gemm_operand_planes", "flash_attention_tc",
 )
+# The f32 routes (K6 also bf16 with K or N not a multiple of 8) and K7's
+# prep: timed at the main paths' shapes, launched on none of them.
+OFF_PATH = ("ws_gemm_tf32", "flash_attention_tf32", "attention_operand_planes")
 # The tensor-core kernels and the SASS instructions each must hold (TF32:
-# HGMMA lines over tf32 operands, K6's "tf32" route).
+# HGMMA lines over tf32 operands, K6's and K7's "tf32" routes).
 TC_SASS = {"ws_gemm_tc_kernel": ("HGMMA", "IGMMA", "TF32"),
-           "flash_attention_tc_kernel": ("HGMMA",)}
+           "flash_attention_tc_kernel": ("HGMMA",),
+           "flash_attention_tf32_kernel": ("HGMMA", "TF32")}
 # The redesigned toggle counters (source, kernel): their SASS is counted for
 # popcounts, shuffles (none: registers blocked in time, REDUX sums) and
 # 16-byte global loads (K5's lane groups, which K3 walks too), and ptxas
@@ -142,6 +152,10 @@ INT_SASS = (("activity_profile", "ws_activity_toggles_kernel"),
             ("toggle_count", "stream_toggles_kernel"),
             ("toggle_count", "strip_toggles_kernel"))
 WIDE_LOADS = ("stream_toggles_kernel", "strip_toggles_kernel")
+# Kernels ptxas must report with no spill: the toggle counters and K7's f32
+# kernel (Q's small plane, P's two planes and both accumulators live in
+# registers).
+NO_SPILL = INT_SASS + (("flash_attention", "flash_attention_tf32_kernel"),)
 SASS_OPS = {"POPC": r"\bPOPC\b", "SHFL": r"\bSHFL\.", "LDG.E.128": r"\bLDG\.E(?:\.\w+)*\.128\b",
             "REDUX": r"\bREDUX\b"}
 # Tolerances of the float kernels against their plain versions (f32 math
@@ -153,6 +167,9 @@ GEMM_REL_TOL = 1e-5
 F32_MAX = 3.4028234663852886e38  # the largest finite float32
 L2_FLUSH_BYTES = 128 << 20  # more than the H100's 50 MB L2
 F32_TOL = 1e-5
+# K7 f32 at the model shapes against a float64 rendering: the reference's
+# own f32 tolerance (rtol and atol, tests/test_kernels.py).
+F32_REF_TOL = 2e-5
 BF16_RTOL = 1.6e-2
 BF16_ATOL = 1e-3
 # Model widths (src/repro/configs/qwen3_8b.py, mixtral_8x7b.py): both have
@@ -365,7 +382,8 @@ def main() -> None:
         ws_gemm_tf32=(WM.ws_gemm, "tf32_launches"),
         ws_gemm_tc=(WM.ws_gemm, "tc_launches"),
         gemm_operand_planes=(WM.ws_gemm, "prep_launches"),
-        flash_attention_fwd=(FA.flash_attention_fwd, "simt_launches"),
+        flash_attention_tf32=(FA.flash_attention_fwd, "tf32_launches"),
+        attention_operand_planes=(FA.flash_attention_fwd, "prep_launches"),
         flash_attention_tc=(FA.flash_attention_fwd, "tc_launches"),
     )
 
@@ -405,7 +423,7 @@ def main() -> None:
             elif "registers" in line or "spill" in line or "error" in line.lower():
                 print(f"  nvcc[{name}] {kernel[:80]}: {line.strip()}")
                 spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-                if spills and any((name, k) in INT_SASS for k in re.findall(r"[a-z_]+_kernel", kernel)):
+                if spills and any(src == name and k in kernel for src, k in NO_SPILL):
                     check(spills.groups() == ("0", "0"), f"{kernel} spills: {line.strip()}")
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     for source in ("ws_matmul", "flash_attention"):
@@ -535,11 +553,11 @@ def main() -> None:
             check(torch.equal(g, p), f"gemm_operand_planes {what}: kernel and plain version differ")
 
     def check_k7(q, k, v, causal, window, what) -> torch.Tensor:
-        """K7 on the route of its type (bf16: tensor cores, f32: CUDA cores)
-        vs its plain version, within F32_TOL (f32) or BF16_RTOL and
-        BF16_ATOL (bf16) of the plain output, elementwise."""
-        tc = q.dtype == torch.bfloat16
-        name, attr = ("flash_attention_tc", "tc_launches") if tc else ("flash_attention_fwd", "simt_launches")
+        """K7 on the route of its type (bf16: "tc", f32: "tf32", both on the
+        tensor cores) vs its plain version, within F32_TOL (f32) or
+        BF16_RTOL and BF16_ATOL (bf16) of the plain output, elementwise."""
+        tc = FA.attention_route(q.dtype) == "tc"
+        name, attr = ("flash_attention_tc", "tc_launches") if tc else ("flash_attention_tf32", "tf32_launches")
         before = getattr(FA.flash_attention_fwd, attr)
         got = FA.flash_attention_fwd(q, k, v, causal=causal, window=window)
         check(getattr(FA.flash_attention_fwd, attr) == before + 1, f"K7 {what}: {name} was not launched")
@@ -552,6 +570,13 @@ def main() -> None:
         check(ok, f"K7 {what}: max |kernel - plain| {err.max().item()!r} beyond rtol {rtol} "
                   f"atol {atol}")
         return got
+
+    def check_attention_planes(k, v, what) -> None:
+        """K7's prep kernel vs its plain version, bit for bit (as int32)."""
+        got = FA.attention_operand_planes(k, v)
+        for g, p in zip(got, FA.attention_operand_planes_plain(k, v)):
+            check(g.shape == p.shape and torch.equal(g.view(torch.int32), p.view(torch.int32)),
+                  f"attention_operand_planes {what}: kernel and plain version differ")
 
     def stacked(jobs):
         """The WS buckets and OS stream buckets the port's scheduler builds
@@ -754,7 +779,19 @@ def main() -> None:
     for b, h, kv, s_len, d, causal, window in ATTENTION_SMALL:
         q, k_, v = (torch.from_numpy(rng.normal(size=(b, heads, s_len, d))).float().to(dev)
                     for heads in (h, kv, kv))
+        check_attention_planes(k_, v, f"{(b, kv, s_len, d)}")
         check_k7(q, k_, v, causal, window, f"f32 {(b, h, kv, s_len, d)} causal={causal} window={window}")
+    # f32 on views at an offset of one element (data_ptr not 16-byte
+    # aligned), and the prep on inf, NaN and values near f32's largest.
+    for d in (32, 128):
+        q, k_, v = (torch.from_numpy(rng.normal(size=heads * 150 * d + 1)).float().to(dev)[1:]
+                    .view(1, heads, 150, d) for heads in (4, 2, 2))
+        check(q.data_ptr() % 16 != 0, "K7: the offset view is 16-byte aligned")
+        check_k7(q, k_, v, True, 60, f"f32 (1, 4, 2, 150, {d}) offset view")
+    k_, v = (torch.from_numpy(rng.normal(size=(1, 2, 70, 64)) * 2.0 ** rng.integers(-40, 40, size=(1, 2, 70, 64)))
+             .float() for _ in range(2))
+    k_[0, 0, 0, 0], v[0, 1, 69, 63], k_[0, 1, 3, 5] = float("inf"), float("nan"), -F32_MAX
+    check_attention_planes(k_.to(dev), v.to(dev), "with inf, NaN and -F32_MAX")
     for b, h, kv, s_len, d, causal, window in ATTENTION_BF16:
         q, k_, v = (torch.from_numpy(rng.normal(size=(b, heads, s_len, d))).to(torch.bfloat16).to(dev)
                     for heads in (h, kv, kv))
@@ -766,8 +803,9 @@ def main() -> None:
           f"(equal), K6 on {2 * len(GEMM_SHAPES) + 1} integer GEMMs on the tensor cores "
           f"(equal, one wrapping; the planes equal too) and float GEMMs, {float_routes['tc']} "
           f"on the tc route and {float_routes['tf32']} on the tf32 route (within "
-          f"{GEMM_REL_TOL} * |a| @ |w|, inf and NaN as the plain version; planes equal), K7 on {len(ATTENTION_SMALL)} f32 cases on the CUDA cores "
-          f"(within {F32_TOL}) and {len(ATTENTION_BF16)} bf16 cases on the tensor cores (within "
+          f"{GEMM_REL_TOL} * |a| @ |w|, inf and NaN as the plain version; planes equal), K7 on "
+          f"{len(ATTENTION_SMALL) + 2} f32 cases on the tf32 route (within {F32_TOL}; planes "
+          f"equal) and {len(ATTENTION_BF16)} bf16 cases on the tc route (within "
           f"rtol {BF16_RTOL}, atol {BF16_ATOL})", flush=True)
 
     # -- phase 3: the main paths ---------------------------------------------
@@ -998,9 +1036,9 @@ def main() -> None:
     print(f"kernel-library path (with its checks): {checked_ms:.1f} ms; launches {counts}", flush=True)
     for name in library_kernels:
         check(counts[name] > 0, f"{name} was not launched on the kernel-library path")
-    for name in ("ws_gemm_tf32", "flash_attention_fwd"):
+    for name in OFF_PATH:
         check(counts[name] == 0, f"{name} (f32 routes) ran on the kernel-library path")
-    for name in library_kernels + ("ws_gemm_tf32", "flash_attention_fwd"):
+    for name in library_kernels + OFF_PATH:
         launches[name] = counts[name]
 
     # -- phase 4: times at the main paths' shapes ----------------------------
@@ -1177,7 +1215,8 @@ def main() -> None:
     # value read once.  The 12 partial-sum streams and the 36 operand streams
     # are summed apart.
     print("  kernel library (K5 bound as K1-K4; K6 and K7: max(bytes / 3.35 TB/s, ops / the "
-          "rate of the operands' type: 989 TFLOP/s bf16, 1979 Tops/s int8, 67 TFLOP/s f32)):")
+          "rate of the operands' type: 989 TFLOP/s bf16, 1979 Tops/s int8, 495 TFLOP/s TF32 for "
+          "f32's three TF32 products)):")
     mask16 = bus_mask(16)
     for name, a, w, a8, w8, _ in lib_layers:
         m, k = a.shape
@@ -1312,19 +1351,72 @@ def main() -> None:
         print(f"  K7 {case} bf16 S={s_len} window={window} ({visible} visible pairs per head): "
               f"tensor cores {tc:.4f} ms ({flops / tc / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, "
               f"scaled_dot_product_attention {library:.4f} ms, bound {bound:.5f} ms ({by})")
-        # The same case in f32 on the CUDA cores, against the f32 CUDA-core
-        # rate and SDPA on the f32 inputs.
-        q, k_, v, k_rep, v_rep = (x.float() for x in (q, k_, v, k_rep, v_rep))
-        simt = median_ms(lambda: FA.flash_attention_fwd(q, k_, v, causal=True, window=window),
-                         calls=3, bursts=3)
+        # The same case in f32 on the "tf32" route, from seeded f32 inputs
+        # made on the card (the bf16 ones widened are exact in TF32, so their
+        # small planes would be zero): first held to its plain version
+        # (F32_TOL) and to a float64 rendering (F32_REF_TOL), then timed
+        # beside SDPA on the same inputs. The bound counts three TF32
+        # products at the TF32 rate; that of one f32 product at the f32
+        # CUDA-core rate is printed beside it.
+        q, k_, v = (torch.randn(1, heads, s_len, HEAD_DIM, generator=gen, device=dev)
+                    for heads in (HEADS, KV_HEADS, KV_HEADS))
+        k_rep, v_rep = k_.repeat_interleave(rep, dim=1), v.repeat_interleave(rep, dim=1)
+        before = FA.flash_attention_fwd.tf32_launches
+        got = FA.flash_attention_fwd(q, k_, v, causal=True, window=window)
+        check(FA.flash_attention_fwd.tf32_launches == before + 1, f"K7 {case} f32 did not take the tf32 route")
+        plain = FA.flash_attention_fwd_plain(q, k_, v, causal=True, window=window)
+        exact = FA.flash_attention_fwd_plain(q.double(), k_.double(), v.double(), causal=True,
+                                             window=window)
+        err = (got - plain).abs()
+        err64 = (got.double() - exact).abs()
+        plain64 = (plain.double() - exact).abs().max().item()
+        check(bool(torch.isfinite(got).all()) and bool((err <= F32_TOL + F32_TOL * plain.abs()).all()),
+              f"K7 {case} f32: max |kernel - plain| {err.max().item()!r} beyond rtol = atol = {F32_TOL}")
+        check(bool((err64 <= F32_REF_TOL + F32_REF_TOL * exact.abs()).all()),
+              f"K7 {case} f32: max |kernel - float64| {err64.max().item()!r} beyond rtol = atol = "
+              f"{F32_REF_TOL}")
+        max_err["flash_attention_tf32"] = max(max_err["flash_attention_tf32"], err.max().item())
+        print(f"  K7 {case} f32: max |kernel - plain| {err.max().item()!r} (within {F32_TOL}), "
+              f"|kernel - float64| {err64.max().item()!r} (within {F32_REF_TOL}; the plain "
+              f"version's {plain64!r})")
+        del got, plain, exact, err, err64
+        planes_plain = FA.attention_operand_planes_plain(k_, v)
+        for g, p in zip(FA.attention_operand_planes(k_, v), planes_plain):
+            check(torch.equal(g.view(torch.int32), p.view(torch.int32)),
+                  f"attention_operand_planes {case}: kernel and plain version differ")
+        del planes_plain
+        tf32 = median_ms(lambda: FA.flash_attention_fwd(q, k_, v, causal=True, window=window),
+                         calls=10, bursts=3)
+        tf32_device, events = device_ms(
+            lambda: FA.flash_attention_fwd(q, k_, v, causal=True, window=window), calls=5)
         plain = median_ms(lambda: FA.flash_attention_fwd_plain(q, k_, v, causal=True, window=window),
                           calls=1, bursts=3)
         library = median_ms(sdpa, calls=3, bursts=3)
-        bound, by = bound_ms(2 * n_bytes, flops, PEAK_OPS_PER_S)
-        add("flash_attention_fwd", simt, plain, bound, by, library, case + " f32")
-        print(f"  K7 {case} f32: CUDA cores {simt:.4f} ms ({flops / simt / 1e9:.1f} TFLOP/s), "
-              f"plain {plain:.4f} ms, scaled_dot_product_attention (f32) {library:.4f} ms "
-              f"({simt / library:.2f}x its time), bound {bound:.5f} ms ({by})")
+        n_bytes32 = sum(x.numel() * x.element_size() for x in (q, k_, v, q))
+        bound, by = bound_ms(n_bytes32, 3 * flops, PEAK_TF32_FLOPS)
+        bound_f32, _ = bound_ms(n_bytes32, flops, PEAK_OPS_PER_S)
+        add("flash_attention_tf32", tf32, plain, bound, by, library, case + " f32")
+        print(f"  K7 {case} f32: tf32 route (three TF32 products) {tf32:.4f} ms "
+              f"({flops / tf32 / 1e9:.1f} f32 TFLOP/s; {100 * bound / tf32:.1f}% of the bound), device "
+              f"{tf32_device:.5f} ms (" + ", ".join(
+                  f"{ms_:.5f} {key.replace('void (anonymous namespace)::', '')[:40]}"
+                  for key, ms_ in events.items())
+              + f"), plain {plain:.4f} ms, scaled_dot_product_attention (f32) {library:.4f} ms "
+              f"({tf32 / library:.2f}x its time), bound {bound:.5f} ms ({by}: 3 TF32 products at "
+              f"495 TFLOP/s; one f32 product at 67 TFLOP/s: {bound_f32:.5f} ms)")
+        # its prep kernel alone: K and V read once, both planes of each written
+        b_kv = KV_HEADS
+        sp = -(-s_len // FA.PLANE_KEYS) * FA.PLANE_KEYS
+        prep = median_ms(lambda: FA.attention_operand_planes(k_, v), calls=20)
+        prep_device, _ = device_ms(lambda: FA.attention_operand_planes(k_, v))
+        prep_plain = median_ms(lambda: FA.attention_operand_planes_plain(k_, v), calls=3, bursts=3)
+        prep_bound, prep_by = bound_ms(4 * 2 * b_kv * s_len * HEAD_DIM
+                                       + 4 * 2 * b_kv * HEAD_DIM * (s_len + sp), 0)
+        add("attention_operand_planes", prep, prep_plain, prep_bound, prep_by, None, case,
+            device=prep_device)
+        print(f"  K7 prep {case} (K and V {b_kv}x{s_len}x{HEAD_DIM} f32): {prep:.4f} ms a call, "
+              f"device {prep_device:.5f} ms ({100 * prep_bound / prep_device:.1f}% of the bound), "
+              f"plain {prep_plain:.4f} ms, bound {prep_bound:.5f} ms ({prep_by})")
         del q, k_, v, k_rep, v_rep
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1386,7 +1478,11 @@ def main() -> None:
             "src/repro_torch/csrc/ws_matmul.cu",
             "src/repro/kernels/ws_matmul/kernel.py:55",
         ),
-        "flash_attention_fwd": (
+        "flash_attention_tf32": (
+            "src/repro_torch/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:112",
+        ),
+        "attention_operand_planes": (
             "src/repro_torch/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/kernel.py:112",
         ),
@@ -1432,9 +1528,9 @@ def main() -> None:
                                      "PyTorch has no CUDA int16 GEMM")
         if name == "ws_gemm_tf32":
             row["library_covers"] = "f32 torch.matmul in full f32"
-        if name in ("ws_gemm_tf32", "flash_attention_fwd"):
-            # the f32 routes (K6 also bf16 with K or N not a multiple of 8),
-            # timed in f32 at the main path's shapes
+        if name == "flash_attention_tf32":
+            row["library_covers"] = "f32 scaled_dot_product_attention (is_causal, or a window mask)"
+        if name in OFF_PATH:
             row["main_path"] = False
         if name in parts:
             row["parts"] = parts[name]

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the port's tensor-core kernels, as raw
 // PTX and runtime calls: TMA tensor maps and loads, mbarriers, wgmma
-// shared-memory descriptors, fences and the few wgmma shapes that K6
-// (ws_matmul.cu) and K7 (flash_attention.cu) issue. No CUTLASS or CuTe
+// shared-memory descriptors, fences, the TF32 split of an f32 value and the
+// few wgmma shapes that K6 (ws_matmul.cu) and K7 (flash_attention.cu) use. No CUTLASS or CuTe
 // header is included, so a source that includes this one still builds in
 // seconds.
 //
@@ -224,10 +224,60 @@ __device__ __forceinline__ void regs_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
 }
 
+// Makes this thread's generic-proxy writes to shared memory visible to the
+// async proxy (wgmma and TMA read shared memory through it).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barrier `id` (1-15; 0 is __syncthreads) over `threads` threads.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // Two f32 values as one register of two bf16 (the first in the low half).
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   uint32_t r;
   asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// ---------------------------------------------------------------------------
+// TF32 planes: an f32 value x as big + small, each a TF32 value (an f32 whose
+// low 13 mantissa bits are zero), so that three TF32 products a_s.b_b +
+// a_b.b_s + a_b.b_b stand for one f32 product (ws_matmul.cu's note says
+// within what).
+// ---------------------------------------------------------------------------
+
+// x rounded to the nearest TF32 value, ties away from zero (what
+// cvt.rna.tf32.f32 gives, written on the bits so that the plain versions
+// match it bit for bit), except that a finite x that would round to inf
+// is truncated. For finite x only.
+__device__ __forceinline__ float round_tf32(float x) {
+  const uint32_t u = __float_as_uint(x);
+  uint32_t r = (u + 0x1000u) & 0xFFFFE000u;
+  if ((r & 0x7FFFFFFFu) == 0x7F800000u) r = u & 0xFFFFE000u;
+  return __uint_as_float(r);
+}
+
+// big = x rounded to TF32, small = (x - big) rounded to TF32 (the
+// difference is exact). A non-finite x goes whole into small and big keeps
+// its sign as +-1, so that the three products give inf and NaN as the f32
+// product does (small = 0 would give inf * 0 = NaN in a_b.b_s).
+__device__ __forceinline__ void split_tf32(float x, float& big, float& small) {
+  big = copysignf(1.0f, x);
+  small = x;
+  if (isfinite(x)) {
+    big = round_tf32(x);
+    small = round_tf32(x - big);
+  }
+}
+
+// A value in [0, 1] (a softmax weight) as the bits of its TF32 rounding,
+// ties away from zero, as round_tf32 gives it.
+__device__ __forceinline__ uint32_t cvt_rna_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
   return r;
 }
 
@@ -242,7 +292,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 //   wgmma_<a><b>: D (64 x 128, s32, wrapping) += A (64 x 32) * B (32 x 128),
 //     both smem K-major, a and b each s8 or u8.
 //   wgmma_tf32_ss: D (64 x N, f32) += A (64 x 8) * B (8 x N), both smem
-//     K-major (tf32 has no transpose bit), N 256.
+//     K-major (tf32 has no transpose bit), N 32, 64 or 256.
+//   wgmma_tf32_rs: D (64 x N, f32) += A (64 x 8, registers) * B (8 x N,
+//     smem K-major), N 32, 64 or 128. Register a[j] of a thread holds row
+//     16 * warp + lane / 4 (+ 8 if bit 0 of j is set) and column lane % 4
+//     (+ 4 if bit 1 of j is set) of the 64 x 8 slice of A.
 // Each is one asm statement written once below, as a macro of its shape:
 // the accumulators d[0..R-1] are operands %0..%(R-1) (HOPPER_LIST<R> and
 // HOPPER_ACC<R>), and the operands after them are numbered from R on.
@@ -330,8 +384,26 @@ HOPPER_WGMMA_I8(wgmma_u8u8, "u8.u8")
                  : HOPPER_ACC##R("+f")                                                         \
                  : "l"(desc_a), "l"(desc_b), "r"(scale_d));                                    \
   }
+HOPPER_WGMMA_TF32_SS(32, 16, 16, 17, 18)
+HOPPER_WGMMA_TF32_SS(64, 32, 32, 33, 34)
 HOPPER_WGMMA_TF32_SS(256, 128, 128, 129, 130)
 
+// tf32, A in four registers a thread (%A0..%A3, the bits of TF32 values),
+// B from shared memory K-major (%B), scale-d (%P).
+#define HOPPER_WGMMA_TF32_RS(N, R, A0, A1, A2, A3, B, P)                                        \
+  __device__ __forceinline__ void wgmma_tf32_rs(float(&d)[R], const uint32_t(&a)[4],            \
+                                                uint64_t desc_b, int scale_d) {                 \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #P ", 0;\n"                               \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 " HOPPER_LIST##R       \
+                 ", {%" #A0 ", %" #A1 ", %" #A2 ", %" #A3 "}, %" #B ", p, 1, 1;\n}\n"            \
+                 : HOPPER_ACC##R("+f")                                                          \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));      \
+  }
+HOPPER_WGMMA_TF32_RS(32, 16, 16, 17, 18, 19, 20, 21)
+HOPPER_WGMMA_TF32_RS(64, 32, 32, 33, 34, 35, 36, 37)
+HOPPER_WGMMA_TF32_RS(128, 64, 64, 65, 66, 67, 68, 69)
+
+#undef HOPPER_WGMMA_TF32_RS
 #undef HOPPER_WGMMA_TF32_SS
 #undef HOPPER_WGMMA_I8
 #undef HOPPER_WGMMA_BF16_RS

@@ -289,21 +289,10 @@ __device__ __forceinline__ int to_stage(int16_t x) { return x; }
 __device__ __forceinline__ float to_stage(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_stage(float x) { return x; }
 
-// x rounded to the nearest TF32 value, ties away from zero (what
-// cvt.rna.tf32.f32 gives, written on the bits so that the plain version
-// matches it bit for bit), except that a finite x that would round to inf
-// is truncated. For finite x only.
-__device__ __forceinline__ float round_tf32(float x) {
-  const uint32_t u = __float_as_uint(x);
-  uint32_t r = (u + 0x1000u) & 0xFFFFE000u;
-  if ((r & 0x7FFFFFFFu) == 0x7F800000u) r = u & 0xFFFFE000u;
-  return __uint_as_float(r);
-}
-
 // Writes the value x of an operand into each of its planes, at `at` in a
 // plane of `size` elements: int8 its value; int16 hi = x >> 8 (s8) and lo =
 // x & 0xFF (its bits as s8, read as u8); bf16 its f32 value (exact in TF32);
-// f32 big and small (see the note at the top).
+// f32 big and small (hopper::split_tf32; see the note at the top).
 template <typename T>
 __device__ __forceinline__ void put_planes(typename Plane<T>::type* planes, long long size,
                                            long long at, typename Plane<T>::stage x) {
@@ -315,11 +304,8 @@ __device__ __forceinline__ void put_planes(typename Plane<T>::type* planes, long
   } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     planes[at] = x;
   } else {
-    float big = copysignf(1.0f, x), small = x;
-    if (isfinite(x)) {
-      big = round_tf32(x);
-      small = round_tf32(x - big);
-    }
+    float big, small;
+    hopper::split_tf32(x, big, small);
     planes[at] = big;
     planes[size + at] = small;
   }

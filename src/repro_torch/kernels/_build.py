@@ -58,9 +58,13 @@ SOURCES: dict[str, dict[str, tuple[list, type]]] = {
     },
     "flash_attention": {
         # q, k, v, o, batch, heads, kv_heads, s_len, head_dim, causal, window,
-        # scale, stream (f32 on the CUDA cores; bf16 on the tensor cores)
-        "flash_attention_fwd": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P], _I),
+        # scale, stream (bf16)
         "flash_attention_tc": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P], _I),
+        # q, k, v, planes, o, batch, heads, kv_heads, s_len, head_dim, causal,
+        # window, scale, stream (f32: the prep kernel, then three TF32 products)
+        "flash_attention_tf32": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P], _I),
+        # k, v, k_planes, vt_planes, bkv, s_len, head_dim, stream
+        "attention_operand_planes": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
     },
 }
 

@@ -11,8 +11,8 @@ Deliberate differences from the reference: no ``block_q``/``block_k``
 arguments (TPU tiling knobs); GQA without repeating K and V (the kernel
 indexes the KV head); no sequence padding (the kernels read zeros past the
 end); head dims limited to the kernels' 32, 64 and 128; and on the card
-bfloat16 runs on the tensor cores with P as two bf16 terms (float32 on the
-CUDA cores).  The reference's
+both types run on the tensor cores, bfloat16 with P as two bf16 terms and
+float32 as three TF32 products.  The reference's
 ``ValueError`` contracts stay: H must be a multiple of KV, and a
 non-causal call needs S to be a multiple of its default block, 128, so
 that both packages accept the same calls.

@@ -44,6 +44,7 @@ __all__ = [
     "gemm_operand_planes_plain",
     "gemm_route",
     "round_tf32",
+    "tf32_planes",
     "ws_gemm",
     "ws_gemm_plain",
 ]
@@ -131,7 +132,7 @@ def round_tf32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(to_inf, bits & ~0x1FFF, up).view(torch.float32)
 
 
-def _tf32_planes(x: torch.Tensor) -> torch.Tensor:
+def tf32_planes(x: torch.Tensor) -> torch.Tensor:
     """(2, ...) f32 planes big and small of f32 ``x``: big = x rounded to
     TF32, small = (x - big) rounded to TF32 (the difference is exact); a
     non-finite x goes whole into small and big keeps its sign as +-1, so
@@ -151,7 +152,7 @@ def gemm_operand_planes_plain(a: torch.Tensor, w: torch.Tensor) -> tuple[torch.T
     int16 two, hi = x >> 8 (read as s8) and lo = x & 0xFF (its bits stored
     in int8, read as u8), so x = hi * 2^8 + lo; bf16 one f32 plane (the
     values, exact in TF32); f32 two f32 planes, big and small
-    (``_tf32_planes``)."""
+    (``tf32_planes``)."""
     k = a.shape[1]
     kp = -(-k // PLANE_K) * PLANE_K
     out = []
@@ -166,7 +167,7 @@ def gemm_operand_planes_plain(a: torch.Tensor, w: torch.Tensor) -> tuple[torch.T
         elif x.dtype == torch.bfloat16:
             out.append(x.float().unsqueeze(0).contiguous())
         else:
-            out.append(_tf32_planes(x.contiguous()))
+            out.append(tf32_planes(x.contiguous()))
     return out[0], out[1]
 
 

@@ -440,8 +440,7 @@ def test_toggle_count_entry_points_on_the_card(card):
 COUNTERS = {"tc": "tc_launches", "tf32": "tf32_launches"}
 
 
-def _counts(fn, names=("launches", "tc_launches", "tf32_launches", "simt_launches",
-                       "prep_launches")):
+def _counts(fn, names=("launches", "tc_launches", "tf32_launches", "prep_launches")):
     return {name: getattr(fn, name) for name in names if hasattr(fn, name)}
 
 
@@ -648,9 +647,99 @@ def test_flash_attention_f32_matches_plain(card, d, b, h, kv, s, causal, window)
     torch.cuda.synchronize()
     after = _counts(FA.flash_attention_fwd)
     assert after["launches"] == before["launches"] + 1
-    assert after["simt_launches"] == before["simt_launches"] + 1
+    assert after["tf32_launches"] == before["tf32_launches"] + 1
+    assert after["prep_launches"] == before["prep_launches"] + 1
     plain = FA.flash_attention_fwd_plain(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,kv,s,d", [(1, 1, 1, 32), (2, 3, 70, 64), (1, 2, 200, 128), (1, 1, 33, 32)])
+def test_attention_operand_planes_match_plain(card, b, kv, s, d):
+    """The prep kernel writes the plain version's planes bit for bit
+    (compared as int32, so that NaN compares too), with inf, NaN, values
+    near f32's largest and exponents across 2^-40..2^40."""
+    rng = np.random.default_rng([b, kv, s, d])
+    k, v = (torch.from_numpy(rng.normal(size=(b, kv, s, d)) * 2.0 ** rng.integers(-40, 40, size=(b, kv, s, d)))
+            .float() for _ in range(2))
+    for x in (k, v):
+        x[0, 0, 0, 0], x[-1, -1, -1, -1] = np.inf, np.nan
+        x[0, -1, s // 2, d // 2] = -F32_MAX
+    k, v = k.to(card), v.to(card)
+    before = FA.flash_attention_fwd.prep_launches
+    got = FA.attention_operand_planes(k, v)
+    torch.cuda.synchronize()
+    assert FA.flash_attention_fwd.prep_launches == before + 1
+    for g, p in zip(got, FA.attention_operand_planes_plain(k, v)):
+        assert g.shape == p.shape and torch.equal(g.view(torch.int32), p.view(torch.int32))
+
+
+def _one_hot_attention(card, d, v):
+    """Queries that each see one key alone: S = D keys k_j = e_j, query i
+    of head h 4000 e_j(i) with j(i) = (5 i + 3 + h) % S, so P is one-hot (the
+    other logits lie 4000 / sqrt(D) below and exp2 gives 0) and O's row i is
+    V's row j(i). Returns (kernel output, V's rows as the one-hot P picks
+    them); non-causal, H = 4 over KV = 2."""
+    s = d
+    k = torch.eye(s, d).expand(1, 2, s, d).contiguous()
+    picks = torch.tensor([[(5 * i + 3 + h) % s for i in range(s)] for h in range(4)])
+    q = 4000.0 * torch.nn.functional.one_hot(picks, d).float()[None]
+    before = FA.flash_attention_fwd.tf32_launches
+    got = FA.flash_attention_fwd(q.to(card), k.to(card), v.to(card), causal=False)
+    torch.cuda.synchronize()
+    assert FA.flash_attention_fwd.tf32_launches == before + 1
+    want = torch.stack([v[0, h // 2, picks[h]] for h in range(4)])[None]
+    return got.cpu(), want
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_attention_f32_one_hot_p_pins_the_fragment_layout(card, d):
+    """P's A fragment comes from the S accumulator's registers with V^T's
+    keys in KEY_ORDER; a wrong layout or order would pick another key's V."""
+    v = torch.randn(1, 2, d, d, generator=torch.Generator().manual_seed(d))
+    got, want = _one_hot_attention(card, d, v)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_flash_attention_f32_logits_in_the_tens(card):
+    """q scaled up 10x (logits of standard deviation 10): the kernel's error
+    against a float64 rendering is at most 4x the plain f32 version's."""
+    gen = torch.Generator().manual_seed(10)
+    q = 10.0 * torch.randn(1, 8, 300, 128, generator=gen)
+    k, v = (torch.randn(1, 2, 300, 128, generator=gen) for _ in range(2))
+    q, k, v = q.to(card), k.to(card), v.to(card)
+    for window in (None, 100):
+        got = FA.flash_attention_fwd(q, k, v, window=window)
+        plain = FA.flash_attention_fwd_plain(q, k, v, window=window)
+        exact = FA.flash_attention_fwd_plain(q.double(), k.double(), v.double(), window=window)
+        kernel_err = (got.double() - exact).abs().max().item()
+        plain_err = (plain.double() - exact).abs().max().item()
+        assert 0 < kernel_err <= 4 * plain_err, (kernel_err, plain_err)
+
+
+def test_flash_attention_f32_values_below_2_to_the_minus_120(card):
+    """The planes' known limit, K6's too: V values within 2^2 of f32's
+    smallest normal have a subnormal small plane, which keeps fewer bits
+    (or none, where the tensor cores flush it), so the output misses the
+    f32 tolerance relative to the values but stays within big's rounding,
+    2^-11 of them."""
+    rng = np.random.default_rng(12)
+    v = torch.from_numpy(1.2e-38 * rng.uniform(1.0, 4.0, size=(1, 2, 64, 64))).float()
+    got, want = _one_hot_attention(card, 64, v)
+    rel = ((got.double() - want.double()).abs() / want.double())
+    assert (rel > 1e-5).any() and (rel <= 2.0**-11).all()
+
+
+@pytest.mark.parametrize("d", [32, 128])
+def test_flash_attention_f32_on_offset_views(card, d):
+    """Inputs that are views at an offset of one element, whose data_ptr is
+    not 16-byte aligned (TMA and the prep's 16-byte loads need it)."""
+    gen = torch.Generator().manual_seed(d + 1)
+    q, k, v = (torch.randn(1 * h * 150 * d + 1, generator=gen).to(card)[1:].view(1, h, 150, d)
+               for h in (4, 2, 2))
+    assert q.data_ptr() % 16 and k.data_ptr() % 16 and v.data_ptr() % 16
+    got = FA.flash_attention_fwd(q, k, v, window=60)
+    torch.testing.assert_close(got, FA.flash_attention_fwd_plain(q, k, v, window=60),
+                               rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize(
@@ -690,4 +779,4 @@ def test_flash_attention_bf16_takes_the_tensor_cores(card):
     flash_attention(q, k, v)
     after = _counts(FA.flash_attention_fwd)
     assert after["tc_launches"] == before["tc_launches"] + 1
-    assert after["simt_launches"] == before["simt_launches"]
+    assert after["tf32_launches"] == before["tf32_launches"]

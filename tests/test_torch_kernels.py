@@ -793,13 +793,123 @@ def test_tensor_core_attention_error_budget(d, window):
 def test_attention_routes_on_cpu_tensors_run_the_plain_version():
     q, k, v = (torch.from_numpy(x).to(torch.bfloat16) for x in _qkv(1, 4, 2, 70, 32))
     before = {attr: getattr(FA.flash_attention_fwd, attr)
-              for attr in ("launches", "tc_launches", "simt_launches")}
+              for attr in ("launches", "tc_launches", "tf32_launches", "prep_launches")}
     want = FA.flash_attention_fwd_plain(q, k, v, window=20)
     assert torch.equal(FA.flash_attention_fwd(q, k, v, window=20), want)
     q, k, v = (x.float() for x in (q, k, v))
     assert torch.equal(FA.flash_attention_fwd(q, k, v, window=20),
                        FA.flash_attention_fwd_plain(q, k, v, window=20))
+    planes = FA.attention_operand_planes(k, v)
+    assert all(torch.equal(p, q) for p, q in zip(planes, FA.attention_operand_planes_plain(k, v)))
     assert all(getattr(FA.flash_attention_fwd, attr) == n for attr, n in before.items())
+    assert FA.attention_route(torch.bfloat16) == "tc" and FA.attention_route(torch.float32) == "tf32"
+    with pytest.raises(TypeError):
+        FA.attention_route(torch.float16)
+    with pytest.raises(TypeError):
+        FA.attention_operand_planes(k.bfloat16(), v.bfloat16())
+    with pytest.raises(ValueError, match="one shape"):
+        FA.attention_operand_planes(k, v[:, :, :10])
+
+
+# The f32 route's operand planes: K's TF32 big and small planes as they are,
+# V's transposed with the keys of each group of 8 in KEY_ORDER and zeros
+# past S; split as K6's f32 planes are.
+ATTENTION_PLANE_SHAPES = [(1, 1, 1, 32), (2, 3, 70, 64), (1, 2, 64, 128), (1, 1, 33, 32)]
+
+
+def _unpermuted_v(vt_planes, s):
+    """V's (2, B·KV, S, D) planes from V^T's, KEY_ORDER undone and the
+    padding dropped."""
+    p, bkv, d, sp = vt_planes.shape
+    inverse = list(np.argsort(FA.KEY_ORDER))
+    vt = vt_planes.reshape(p, bkv, d, sp // 8, 8)[..., inverse].reshape(p, bkv, d, sp)
+    return vt[..., :s].transpose(-1, -2)
+
+
+@pytest.mark.parametrize("b,kv,s,d", ATTENTION_PLANE_SHAPES)
+def test_attention_operand_planes_shapes_and_padding(b, kv, s, d):
+    k, v = (torch.from_numpy(RNG.normal(size=(b, kv, s, d)) * 2.0 ** RNG.integers(-30, 30, size=(b, kv, s, d)))
+            .float() for _ in range(2))
+    k_planes, vt_planes = FA.attention_operand_planes_plain(k, v)
+    sp = -(-s // FA.PLANE_KEYS) * FA.PLANE_KEYS
+    assert k_planes.shape == (2, b * kv, s, d) and vt_planes.shape == (2, b * kv, d, sp)
+    assert k_planes.dtype == vt_planes.dtype == torch.float32
+    for planes in (k_planes, vt_planes):
+        assert not (planes.view(torch.int32) & 0x1FFF).any()  # TF32 values
+    # zeros past S, wherever KEY_ORDER put them
+    assert not _unpermuted_v(vt_planes, sp)[:, :, s:].any()
+    # K's planes are K6's planes of the same values, bit for bit
+    a_planes, _ = WM.gemm_operand_planes_plain(k.reshape(-1, d), torch.zeros((d, 1)))
+    assert torch.equal(k_planes.reshape(2, -1, d).view(torch.int32), a_planes.view(torch.int32))
+
+
+@pytest.mark.parametrize("b,kv,s,d", ATTENTION_PLANE_SHAPES)
+def test_attention_vt_key_order_undone_gives_v(b, kv, s, d):
+    k, v = (torch.from_numpy(RNG.normal(size=(b, kv, s, d))).float() for _ in range(2))
+    _, vt_planes = FA.attention_operand_planes_plain(k, v)
+    v_planes = _unpermuted_v(vt_planes, s)
+    x = v.reshape(b * kv, s, d).double()
+    big, small = v_planes.double()
+    assert ((x - big - small).abs() <= 2.0**-22 * x.abs()).all()
+    # bit for bit K6's planes of the same values (V as the GEMM's w: K6
+    # transposes it, as the prep does)
+    for z in range(b * kv):
+        _, w_planes = WM.gemm_operand_planes_plain(torch.zeros((1, s)), v.reshape(b * kv, s, d)[z])
+        assert torch.equal(w_planes[:, :, :s].view(torch.int32),
+                           v_planes[:, z].transpose(-1, -2).contiguous().view(torch.int32))
+    assert tuple(sorted(FA.KEY_ORDER)) == tuple(range(8))
+
+
+def _tf32_attention(q, k, v, *, causal=True, window=None, three=True):
+    """The f32 route's arithmetic on the plain planes, in float64: S = Q_s
+    K_b + Q_b K_s + Q_b K_b; the softmax; P rounded to f32 and split into
+    TF32 big and small; O = P_s V_b + P_b V_s + P_b V_b, normalised (with
+    ``three`` False, one TF32 product each: Q_b K_b and P_b V_b)."""
+    b, h, s, d = q.shape
+    kv = k.shape[1]
+    k_planes, vt_planes = FA.attention_operand_planes_plain(k, v)
+    q_b, q_s = WM.tf32_planes(q).double()
+    k_b, k_s = k_planes.double().reshape(2, b, kv, s, d).repeat_interleave(h // kv, 2)
+    v_b, v_s = _unpermuted_v(vt_planes, s).double().reshape(2, b, kv, s, d).repeat_interleave(h // kv, 2)
+    if not three:
+        q_s, k_s, v_s = (torch.zeros_like(x) for x in (q_s, k_s, v_s))
+    logits = (q_s @ k_b.mT + q_b @ k_s.mT + q_b @ k_b.mT) * d ** -0.5
+    rows, keys = torch.arange(s)[:, None], torch.arange(s)[None]
+    visible = torch.ones((s, s), dtype=torch.bool)
+    if causal:
+        visible &= keys <= rows
+    if window is not None:
+        visible &= rows - keys < window
+    logits = logits.masked_fill(~visible, -np.inf)
+    top = logits.amax(-1, keepdim=True).nan_to_num(0.0, neginf=0.0)
+    p = torch.exp(logits - top).float()
+    p_b = WM.round_tf32(p)
+    p_s = WM.round_tf32(p - p_b) if three else torch.zeros_like(p)
+    o = p_s.double() @ v_b + p_b.double() @ v_s + p_b.double() @ v_b
+    total = p.double().sum(-1, keepdim=True)
+    return (o / torch.where(total == 0, 1.0, total)).float()
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize(
+    "b,h,kv,s,causal,window",
+    [
+        (1, 2, 2, 70, True, None),
+        (2, 4, 2, 100, True, 30),  # GQA and a window
+        (1, 4, 1, 64, False, None),
+        (1, 2, 1, 40, True, 0),  # every row sees no key
+    ],
+)
+def test_three_tf32_products_meet_the_attention_tolerance(d, b, h, kv, s, causal, window):
+    q, k, v = (torch.from_numpy(x) for x in _qkv(b, h, kv, s, d))
+    got = _tf32_attention(q, k, v, causal=causal, window=window)
+    plain = FA.flash_attention_fwd_plain(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got, plain, **F32_TOL)
+    if window == 0:
+        assert not got.any()
+    else:  # one TF32 product each would not
+        one = _tf32_attention(q, k, v, causal=causal, window=window, three=False)
+        assert not torch.allclose(one, plain, **F32_TOL)
 
 
 # ---------------------------------------------------------------------------
