@@ -72,6 +72,26 @@ Phases (any mismatch exits non-zero; nothing is caught):
      Mixtral-8x7B (S=8192, window 4096) in bf16, within rtol 1.6e-2 and
      atol 1e-3 of its plain version (f32 math, query chunks of 1024 rows),
      on the tensor cores.
+   Then the design-space path (phase 3c), with the same count discipline:
+   * lane-resolved profiles (``profile_gemm(..., lane_detail=True,
+     backend="cuda")``, cache cleared) of the six layers, WS b_v=37 and OS:
+     the lane sums must equal the file's counts and K1's (WS) or K4's (OS)
+     counts on the same operands, and each layer's first k tile must give
+     the CPU lane pass's lanes; each lane pass's wall time and peak device
+     memory are printed;
+   * the path itself, each step timed: ``measured_design_activities`` (K2,
+     K3) over the example grid (rows 16/32, cols 8-128, b16, WS and OS,
+     bus-invert off and on: 40 points) and the first three layers, whose
+     activities and scheduler statistics must equal the file's (the JAX
+     package's) and whose activities must lie within 1e-12 of the numpy
+     oracle's; ``measured_design_lane_activities`` of all six layers on a
+     BI-free grid (rows 16/32, cols 32/64, b16, WS and OS);
+     ``evaluate_design_space`` and its Pareto set, and
+     ``evaluate_layout_design_space`` over six layout families with the
+     measured lanes, each with ``engine="cuda"`` held to ``engine="numpy"``
+     within 1e-10 (the golden-section argmin within 1e-7, the power at it
+     within 1e-10); and the paper's savings through the segment engine
+     (W/H* = 3.78, 9.1% +/- 0.5 and 2.1% +/- 0.5 saved).
 4. Time each kernel at the main paths' shapes with CUDA events (warm-up,
    then the median of repeated calls) beside its plain version, its bound
    and, where one PyTorch call computes the same function, that call.  The
@@ -88,9 +108,15 @@ Phases (any mismatch exits non-zero; nothing is caught):
    attention cases (seeded f32 inputs, held there to 1e-5 of its plain
    version and to the reference's 2e-5 of a float64 rendering), each beside
    SDPA in f32, with the same two bounds, and its prep kernel also by
-   device time.
+   device time.  Time the design-space path's PyTorch programs (the lane
+   passes, ``_evaluate_core``, ``_sweep_core``, ``_coeff_eval_core``): a
+   call, its kernel launches, device time and peak memory, beside the
+   numpy engine; and the layout evaluator's warm throughput in (point x
+   layout) cells/s on the fleet grid of ``benchmarks/bench_layout.py``
+   (1152 points x 8 families).
 5. Trace each main path once more with ``torch.profiler`` and print the
-   device's busy share and the device time of each kernel and copy.
+   device's busy share and the device time of each kernel and copy; the
+   design-space path too.
 
 The last lines are the ``kernels`` JSON object (every kernel; K6's and
 K7's "tf32" routes and K7's prep kernel with no launch on the main path), the
@@ -188,6 +214,26 @@ OPERAND_BUS = 16  # its operand bus
 BATCH_STATS_FIELDS = (
     "jobs", "passes", "pass_reuse", "buckets", "tasks", "strips", "serial_fallbacks",
 )
+# The design-space path (phase 3c): the layout families of its lane-resolved
+# evaluation and of bench_layout's fleet grid; the paper's measured
+# activities (Section IV), whose segment-level verdict is W/H* = 3.78 and
+# 9.1% / 2.1% saved; the fields each evaluator is held to on the card.
+LANE_FAMILIES = ("uniform", "serpentine2", "serpentine4", "pods1x1", "pods2x2", "pods4x4")
+FLEET_FAMILIES = ("uniform", "serpentine2", "serpentine4", "pods1x1", "pods2x2", "pods3x3",
+                  "pods4x4", "pods8x8")
+DS_EVAL_FIELDS = (
+    "a_v_eff", "aspect_opt", "aspect_opt_gss", "bus_power_opt", "bus_power_sym", "aspect_robust",
+    "max_regret", "bus_power_robust", "bus_power_square", "interconnect_saving", "total_saving",
+    "area_um2", "bus_energy_per_mac_j", "neg_macs_per_cycle",
+)
+LAYOUT_EVAL_FIELDS = ("aspect_opt", "bus_power_opt", "aspect_robust", "bus_power_robust",
+                      "overhead_w", "wirelength_um")
+# engine="cuda" against engine="numpy": float64 on both, only the last bits
+# of exp, log and sqrt and the order of sums differ.  The golden-section
+# argmin of a smooth minimum is set only to about sqrt(eps): it is held
+# within GSS_ARGMIN_RTOL, and the power shape at it within ENGINE_RTOL.
+ENGINE_RTOL = 1e-10
+GSS_ARGMIN_RTOL = 1e-7
 
 # The reference test matrices: tests/test_activity_profile.py CASES / OS_CASES.
 CASES = [
@@ -336,16 +382,33 @@ def main() -> None:
     import numpy as np
 
     from repro_torch.core import pipeline
-    from repro_torch.core.energy import average_comparison, compare_sym_asym
-    from repro_torch.core.floorplan import SystolicArrayGeometry, optimal_aspect_power
-    from repro_torch.core.optimize import os_dataflow_geometry
+    from repro_torch.core.design_space import (
+        DesignSpace,
+        evaluate_design_space,
+        evaluate_layout_design_space,
+        sweep_bus_power,
+    )
+    from repro_torch.core.energy import (
+        average_comparison,
+        calibration_split_arr,
+        compare_sym_asym,
+    )
+    from repro_torch.core.floorplan import (
+        BusActivity,
+        SystolicArrayGeometry,
+        bus_power_arr,
+        optimal_aspect_power,
+    )
+    from repro_torch.core.optimize import _power_shape, os_dataflow_geometry
     from repro_torch.core.pipeline import BatchStats, ProfileJob
     from repro_torch.core.quant import quantize_symmetric
-    from repro_torch.core.switching import clear_profile_cache, combine_profiles
+    from repro_torch.core.switching import clear_profile_cache, combine_profiles, profile_gemm
     from repro_torch.core.workloads import (
         RESNET50_TABLE1,
         conv_layer_job,
         conv_to_gemm,
+        measured_design_activities,
+        measured_design_lane_activities,
         profile_conv_layer,
         profile_network,
         synth_activations,
@@ -353,6 +416,7 @@ def main() -> None:
     )
     from repro_torch.kernels import _build
     from repro_torch.kernels.activity_profile import kernel as K
+    from repro_torch.kernels.activity_profile import ops as AP
     from repro_torch.kernels.activity_profile.ref import profile_gemm_toggles_ref
     from repro_torch.kernels.bitops import bus_mask
     from repro_torch.kernels.flash_attention import flash_attention
@@ -1041,6 +1105,179 @@ def main() -> None:
     for name in library_kernels + OFF_PATH:
         launches[name] = counts[name]
 
+    # -- phase 3c: the design-space path ---------------------------------------
+    # Measured activities (K2 and K3 through run_profile_batch) -> lane-
+    # resolved profiles (PyTorch lane passes on the card) -> the design-space
+    # evaluator -> the segment-level layout evaluator (float64 programs on
+    # the card) -> Pareto set and floorplan verdict.
+    ds_ref = ref["design_space"]
+    paper_act = BusActivity.paper_resnet50()
+    ds_grid = DesignSpace(**ds_ref["axes"]).expand()
+    ds_layers = RESNET50_TABLE1[: ds_ref["layers"]]
+    lane_grid = DesignSpace(rows=(16, 32), cols=(32, 64), input_bits=(16,),
+                            dataflows=("WS", "OS")).expand()
+
+    def host_timed(fn):
+        """(fn's result, ms): the host clock around one call that ends in a
+        synchronize."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, (time.perf_counter() - t0) * 1e3
+
+    # 1. Lane-resolved profiles of the six layers on the paper's array.
+    clear_profile_cache()
+    lane_ms = {}
+    for (name, a, w), want in zip(operands, ref["layers"]):
+        for dataflow in ("WS", "OS"):
+            b_v = want[dataflow]["b_v"]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            p, lane_ms[name, dataflow] = host_timed(lambda: profile_gemm(
+                a, w, rows, cols, OPERAND_BUS, b_v, dataflow=dataflow, backend="cuda",
+                lane_detail=True))
+            peak_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
+            sums = [sum(p.h_lane_toggles), sum(p.v_lane_toggles), p.h_transitions, p.v_transitions]
+            check(sums == want[dataflow]["counts"],
+                  f"lanes {dataflow} {name}: lane sums {sums} reference {want[dataflow]['counts']}")
+            agg = AP.profile_gemm_toggles(a, w, rows, cols, OPERAND_BUS, b_v, dataflow=dataflow)
+            check(sums == [agg.h_toggles, agg.v_toggles, agg.h_transitions, agg.v_transitions],
+                  f"lanes {dataflow} {name}: lane sums {sums}, {'K1' if dataflow == 'WS' else 'K4'} {agg}")
+            tile = (a[:, :rows], w[:rows])
+            on_card_lanes = AP.profile_gemm_lane_toggles(*tile, rows, cols, OPERAND_BUS, b_v,
+                                                         dataflow=dataflow, engine="cuda")
+            cpu_lanes = AP.profile_gemm_lane_toggles(*tile, rows, cols, OPERAND_BUS, b_v,
+                                                     dataflow=dataflow, engine="torch")
+            check(on_card_lanes == cpu_lanes,
+                  f"lanes {dataflow} {name}: first k tile {on_card_lanes} CPU pass {cpu_lanes}")
+            print(f"  lanes {dataflow} {name}: lane pass {lane_ms[name, dataflow]:.2f} ms, peak "
+                  f"{peak_mib:.1f} MiB; sums = reference = {'K1' if dataflow == 'WS' else 'K4'}; "
+                  f"h lanes {p.h_lane_toggles[:4]}..., v lanes ...{p.v_lane_toggles[-6:]}")
+
+    def design_space_path() -> dict:
+        """The path once, each step timed by ``host_timed``; its results,
+        for the checks below."""
+        out, step_ms = {}, {}
+
+        def step(label, fn):
+            result, step_ms[label] = host_timed(fn)
+            return result
+
+        out["a_h"], out["a_v"], out["stats"] = step(
+            "measured activities", lambda: measured_design_activities(
+                ds_grid, ds_layers, backend="cuda", return_stats=True))
+        out["lanes"] = step("lane activities", lambda: measured_design_lane_activities(
+            lane_grid, RESNET50_TABLE1, backend="cuda"))
+        out["eval"] = step("design-space evaluator", lambda: evaluate_design_space(
+            ds_grid, out["a_h"], out["a_v"], engine="cuda"))
+        out["pareto"] = step("Pareto set", lambda: out["eval"].pareto())
+        a_h_l, a_v_l, h_lanes, v_lanes = out["lanes"]
+        out["layout"] = step("layout evaluator", lambda: evaluate_layout_design_space(
+            lane_grid, a_h_l, a_v_l, layouts=LANE_FAMILIES, h_lanes=h_lanes, v_lanes=v_lanes,
+            engine="cuda"))
+        out["paper"] = step("paper verdict", lambda: evaluate_layout_design_space(
+            DesignSpace(rows=32, cols=32, input_bits=16), paper_act.a_h, paper_act.a_v,
+            layouts=("uniform",), engine="cuda"))
+        out["ms"] = step_ms
+        return out
+
+    clear_profile_cache()
+    reset_counts()
+    ds_out, main_ms["design-space"] = host_timed(design_space_path)
+    counts = read_counts()
+    print(f"design-space path: {main_ms['design-space']:.1f} ms (" + ", ".join(
+        f"{label} {ms:.1f}" for label, ms in ds_out["ms"].items()) + f"); launches {counts}",
+        flush=True)
+    ds_launches = {}
+    for name in ("ws_task_toggles", "strip_toggles"):
+        check(counts[name] > 0, f"{name} was not launched on the design-space path")
+        ds_launches[name] = counts[name]
+
+    # 2. The example's grid: activities, scheduler, evaluator, Pareto set.
+    stats = ds_out["stats"]
+    got = {key: getattr(stats, key) for key in BATCH_STATS_FIELDS}
+    check(got == ds_ref["batch_stats"],
+          f"design-space scheduler: stats {got} reference {ds_ref['batch_stats']}")
+    check(stats.degraded == stats.skipped == 0 and not stats.failure_report,
+          f"design-space scheduler: failures {stats.as_dict()}")
+    check(np.array_equal(ds_out["a_h"], ds_ref["a_h"]) and np.array_equal(ds_out["a_v"], ds_ref["a_v"]),
+          "design-space activities differ from the reference file's")
+    at_paper = np.flatnonzero((ds_grid.rows == 32) & (ds_grid.cols == 32) & ~ds_grid.dataflow_os
+                              & ~ds_grid.bus_invert)
+    for i, want in enumerate(ref["layers"][: len(ds_layers)]):
+        prof = want["WS"]["profile"]
+        check(bool((ds_out["a_h"][i, at_paper] == prof["a_h"]).all()
+                   and (ds_out["a_v"][i, at_paper] == prof["a_v"]).all()),
+              f"design-space activities at 32x32 WS, layer {i}: not the reference profile's")
+    np_a_h, np_a_v, np_stats = measured_design_activities(
+        ds_grid, ds_layers, backend="numpy", use_cache=False, return_stats=True)
+    check(np_stats.jobs == stats.jobs and np_stats.serial_fallbacks == stats.jobs
+          and np_stats.degraded == np_stats.skipped == 0 and not np_stats.failure_report,
+          f"numpy backend: stats {np_stats.as_dict()}")
+    act_err = max(float(np.max(np.abs(x - y) / y)) for x, y in ((ds_out["a_h"], np_a_h),
+                                                                  (ds_out["a_v"], np_a_v)))
+    check(act_err <= REL_TOL, f"design-space activities vs the numpy oracle: {act_err!r}")
+    ev = ds_out["eval"]
+    ev_np = evaluate_design_space(ds_grid, ds_out["a_h"], ds_out["a_v"], engine="numpy")
+    eval_err = {}
+    for field in DS_EVAL_FIELDS:
+        g, w_ = np.asarray(getattr(ev, field), float), np.asarray(getattr(ev_np, field), float)
+        eval_err[field] = float(np.max(np.abs(g - w_) / np.maximum(np.abs(w_), 1e-300)))
+        tol = GSS_ARGMIN_RTOL if field == "aspect_opt_gss" else ENGINE_RTOL
+        check(eval_err[field] <= tol, f"design-space {field}: cuda vs numpy {eval_err[field]!r}")
+    shape_at = [_power_shape(ds_grid.b_h.astype(float), ds_grid.b_v.astype(float), ds_out["a_h"],
+                             ev_np.a_v_eff, e.aspect_opt_gss, np) for e in (ev, ev_np)]
+    gss_err = float(np.max(np.abs(shape_at[0] / shape_at[1] - 1)))
+    check(gss_err <= ENGINE_RTOL, f"design-space power shape at the GSS argmin: {gss_err!r}")
+    check(np.array_equal(ds_out["pareto"], ev_np.pareto()), "design-space Pareto sets differ")
+    frontier = np.flatnonzero(ds_out["pareto"])
+    print(f"  design space: {ds_grid.n_points} points x {len(ds_layers)} layers, scheduler {got}; "
+          f"activities = reference file, within {act_err:.1e} of the numpy oracle; evaluator "
+          f"cuda vs numpy max rel {max(v for k, v in eval_err.items() if k != 'aspect_opt_gss'):.1e} "
+          f"(GSS argmin {eval_err['aspect_opt_gss']:.1e}, power there {gss_err:.1e}); Pareto "
+          f"set of {frontier.size}: " + ", ".join(ds_grid.describe(int(i)) for i in frontier[:8]))
+
+    # 3. Layout families with measured lanes.
+    a_h_l, a_v_l, h_lanes, v_lanes = ds_out["lanes"]
+    check(np.allclose(h_lanes.sum(-1), a_h_l * lane_grid.b_h, rtol=1e-12, atol=0)
+          and np.allclose(v_lanes.sum(-1), a_v_l * lane_grid.b_v, rtol=1e-12, atol=0),
+          "lane activities do not sum to the aggregates")
+    lev = ds_out["layout"]
+    lev_np = evaluate_layout_design_space(lane_grid, a_h_l, a_v_l, layouts=LANE_FAMILIES,
+                                          h_lanes=h_lanes, v_lanes=v_lanes, engine="numpy")
+    layout_err = 0.0
+    for field in LAYOUT_EVAL_FIELDS:
+        g, w_ = np.asarray(getattr(lev, field), float), np.asarray(getattr(lev_np, field), float)
+        ok = np.isfinite(w_)
+        check(bool((np.isfinite(g) == ok).all()), f"layout {field}: feasibility differs")
+        layout_err = max(layout_err, float(np.max(np.abs(g[ok] - w_[ok]) / np.abs(w_[ok]))))
+    check(layout_err <= ENGINE_RTOL, f"layout evaluator cuda vs numpy: {layout_err!r}")
+    check(np.array_equal(lev.best_layout, lev_np.best_layout), "layout winners differ")
+    print(f"  layouts: {lane_grid.n_points} points x {len(LANE_FAMILIES)} families x 6 layers with "
+          f"measured lanes: cuda vs numpy max rel {layout_err:.1e}; best: " + ", ".join(
+              f"{lane_grid.describe(i)} -> {lev.best_layout_name(i)}" for i in range(lane_grid.n_points)))
+
+    # 4. The paper's savings through the segment engine (as
+    # benchmarks/bench_layout.py derives them).
+    geom = SystolicArrayGeometry.paper_32x32()
+    pev = ds_out["paper"]
+    p_sym = float(bus_power_arr(geom.rows, geom.cols, geom.b_h, geom.b_v, geom.pe_area_um2,
+                                paper_act.a_h, paper_act.a_v, 1.0))
+    p_asym = float(pev.bus_power_robust[0, 0])
+    fixed, compute = calibration_split_arr(p_sym)
+    int_saving = 1.0 - (p_asym + fixed) / (p_sym + fixed)
+    tot_saving = 1.0 - (p_asym + fixed + compute) / (p_sym + fixed + compute)
+    aspect = float(pev.aspect_robust[0, 0])
+    check(f"{aspect:.2f}" == "3.78", f"segment-level W/H* {aspect!r}, paper 3.78")
+    check(abs(int_saving - 0.091) <= 0.005, f"segment-level interconnect saving {int_saving!r}")
+    check(abs(tot_saving - 0.021) <= 0.005, f"segment-level total saving {tot_saving!r}")
+    print(f"  paper savings (segment engine, cuda): W/H*={aspect!r} interconnect -{100 * int_saving:.3f}% "
+          f"total -{100 * tot_saving:.3f}% (paper 3.78, 9.1%, 2.1%)")
+    print("design-space lane passes (ms): " + ", ".join(
+        f"{name} {df} {ms:.2f}" for (name, df), ms in lane_ms.items()), flush=True)
+
     # -- phase 4: times at the main paths' shapes ----------------------------
     def median_ms(fn, calls: int, bursts: int = 5) -> float:
         """Median over bursts of the mean per-call time of ``calls``
@@ -1418,6 +1655,72 @@ def main() -> None:
               f"device {prep_device:.5f} ms ({100 * prep_bound / prep_device:.1f}% of the bound), "
               f"plain {prep_plain:.4f} ms, bound {prep_bound:.5f} ms ({prep_by})")
         del q, k_, v, k_rep, v_rep
+    # The design-space path's PyTorch programs (no hand-written kernel: the
+    # reference runs them as jitted XLA): time a call (CUDA events), the
+    # device kernels one call launches and their device time (torch.profiler),
+    # and its peak memory above what was allocated before it.
+    def program_stats(fn, calls: int = 3) -> dict:
+        ms = median_ms(fn, calls=calls, bursts=3)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = device_events(prof)
+        return {
+            "ms": ms,
+            "kernels": sum(n for key, (_, n) in events.items() if not key.startswith("Mem")),
+            "device_ms": sum(ms_ for ms_, _ in events.values()),
+            "peak_mib": (torch.cuda.max_memory_allocated() - base) / 2**20,
+        }
+
+    lane_inputs = [(on_card(a), on_card(w)) for _, a, w in operands]
+    fleet = DesignSpace(rows=(8, 16, 32, 64, 96, 128), cols=(8, 16, 32, 64, 128, 192, 256, 512),
+                        input_bits=(4, 8, 16), dataflows=("WS", "OS"),
+                        pe_area_um2=(400.0, 900.0, 1600.0, 2500.0)).expand()
+    fleet_rng = np.random.default_rng(0)
+    fleet_ah = fleet_rng.uniform(0.1, 0.4, (3, fleet.n_points))
+    fleet_av = fleet_rng.uniform(0.2, 0.6, (3, fleet.n_points))
+    ds_a_h, ds_a_v = ds_out["a_h"], ds_out["a_v"]
+    sweep_aspects = np.geomspace(1 / 16, 16, 64)
+    programs = {
+        "lane h pass (6 layers, WS b_h=16)": lambda: [
+            AP._h_lane_toggles(a_t, OPERAND_BUS) for a_t, _ in lane_inputs],
+        "lane v pass (6 layers, WS b_v=37)": lambda: [
+            AP._v_lane_toggles(a_t, w_t, rows, WS_BUS_BITS) for a_t, w_t in lane_inputs],
+        "_evaluate_core (40 points x 3 layers)": lambda: evaluate_design_space(
+            ds_grid, ds_a_h, ds_a_v, engine="cuda"),
+        "_sweep_core (40 points x 64 aspects)": lambda: sweep_bus_power(
+            ds_grid, ds_a_h.mean(0), ds_a_v.mean(0), sweep_aspects, engine="cuda"),
+        f"_coeff_eval_core (fleet: {fleet.n_points} points x {len(FLEET_FAMILIES)} families)":
+            lambda: evaluate_layout_design_space(fleet, fleet_ah, fleet_av, layouts=FLEET_FAMILIES,
+                                                 engine="cuda"),
+    }
+    numpy_twins = {
+        "_evaluate_core": lambda: evaluate_design_space(ds_grid, ds_a_h, ds_a_v, engine="numpy"),
+        "_sweep_core": lambda: sweep_bus_power(ds_grid, ds_a_h.mean(0), ds_a_v.mean(0),
+                                               sweep_aspects, engine="numpy"),
+        "_coeff_eval_core": lambda: evaluate_layout_design_space(
+            fleet, fleet_ah, fleet_av, layouts=FLEET_FAMILIES, engine="numpy"),
+    }
+    ds_programs = {}
+    for label, fn in programs.items():
+        st_ = program_stats(fn)
+        twin = numpy_twins.get(label.split()[0])
+        if twin is not None:
+            twin()
+            st_["numpy_ms"] = min(host_timed(twin)[1] for _ in range(3))
+        ds_programs[label] = st_
+        print(f"  program {label}: {st_['ms']:.3f} ms a call, {st_['kernels']} kernel launches, "
+              f"device {st_['device_ms']:.4f} ms, peak {st_['peak_mib']:.1f} MiB"
+              + (f"; numpy engine {st_['numpy_ms']:.3f} ms" if "numpy_ms" in st_ else ""))
+    del lane_inputs
+    fleet_label = next(label for label in programs if label.startswith("_coeff_eval_core"))
+    cells = fleet.n_points * len(FLEET_FAMILIES)
+    print(f"  layout evaluator, warm, fleet grid: {cells / ds_programs[fleet_label]['ms'] * 1e3:,.0f} "
+          f"(point x layout) cells/s on the card, "
+          f"{cells / ds_programs[fleet_label]['numpy_ms'] * 1e3:,.0f} with engine='numpy'", flush=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     library_path(checked=False)
@@ -1434,7 +1737,8 @@ def main() -> None:
 
     for path, go in (("per-GEMM path (WS + OS, cache cleared", both_dataflows(per_gemm_path)),
                      ("batched path (WS + OS, cache cleared", both_dataflows(batched_path)),
-                     ("kernel-library path (no checks", lambda: library_path(checked=False))):
+                     ("kernel-library path (no checks", lambda: library_path(checked=False)),
+                     ("design-space path (cache cleared", design_space_path)):
         clear_profile_cache()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1532,6 +1836,8 @@ def main() -> None:
             row["library_covers"] = "f32 scaled_dot_product_attention (is_causal, or a window mask)"
         if name in OFF_PATH:
             row["main_path"] = False
+        if name in ds_launches:
+            row["design_space_launches"] = ds_launches[name]
         if name in parts:
             row["parts"] = parts[name]
         kernels.append(row)

@@ -5,5 +5,6 @@ counterpart there, which is the reference it is tested against.  The port
 imports ``torch`` and numpy, never ``jax`` and nothing of ``repro``.
 
 Entry points run on the CUDA card unless the caller asks for the CPU
-(``backend="torch"`` or ``"numpy"`` in ``core.switching.profile_gemm``).
+(``backend="torch"`` or ``"numpy"`` in ``core.switching.profile_gemm``;
+``engine="torch"`` or ``"numpy"`` in the design-space and layout evaluators).
 """

@@ -1,8 +1,9 @@
 """Core: the paper's contribution (asymmetric SA floorplanning + energy
-model) and the switching-activity profiler that feeds it.
+model), the switching-activity profiler that feeds it, and the design-space
+engine that explores it.
 
-Exports what the port covers so far; the design-space engine of the
-reference comes with a later slice.
+Exports what the reference's ``core`` exports, except its deprecated
+``profile_ws_*`` aliases.
 """
 
 from repro_torch.core.floorplan import (  # noqa: F401
@@ -21,6 +22,15 @@ from repro_torch.core.energy import (  # noqa: F401
     average_comparison,
     compare_sym_asym,
     power_breakdown,
+)
+from repro_torch.core.design_space import (  # noqa: F401
+    DesignGrid,
+    DesignSpace,
+    DesignSpaceEval,
+    evaluate_design_space,
+    evaluate_layout_design_space,
+    pareto_mask,
+    sweep_bus_power,
 )
 from repro_torch.core.switching import (  # noqa: F401
     ActivityProfile,

@@ -90,10 +90,12 @@ class _TorchNamespace:
     def __init__(self, device: torch.device):
         self.device = device
 
-    def asarray(self, x):
+    def asarray(self, x, dtype=None):
+        """``x`` as a tensor on the device: float64 unless ``dtype`` (a
+        torch dtype) is given; a tensor keeps its own dtype unless cast."""
         if isinstance(x, torch.Tensor):
-            return x
-        return torch.as_tensor(x, dtype=torch.float64, device=self.device)
+            return x if dtype is None else x.to(dtype)
+        return torch.as_tensor(x, dtype=dtype or torch.float64, device=self.device)
 
     def sqrt(self, x):
         return torch.sqrt(self.asarray(x))
@@ -111,7 +113,10 @@ class _TorchNamespace:
         return torch.where(self.asarray(cond), self.asarray(x), self.asarray(y))
 
     def clip(self, x, lo, hi):
-        return torch.clamp(self.asarray(x), self.asarray(lo), self.asarray(hi))
+        x = self.asarray(x)
+        if isinstance(lo, torch.Tensor) or isinstance(hi, torch.Tensor):
+            lo, hi = self.asarray(lo, x.dtype), self.asarray(hi, x.dtype)
+        return torch.clamp(x, lo, hi)
 
     def maximum(self, x, y):
         return torch.maximum(self.asarray(x), self.asarray(y))
@@ -122,6 +127,25 @@ class _TorchNamespace:
     def max(self, x, axis=None):
         x = self.asarray(x)
         return torch.amax(x) if axis is None else torch.amax(x, dim=axis)
+
+    def sum(self, x, axis=None, keepdims=False):
+        x = self.asarray(x)
+        return torch.sum(x) if axis is None else torch.sum(x, dim=axis, keepdim=keepdims)
+
+    def cumsum(self, x, axis):
+        return torch.cumsum(self.asarray(x), dim=axis)
+
+    def concatenate(self, xs, axis=0):
+        return torch.cat([self.asarray(x) for x in xs], dim=axis)
+
+    def zeros(self, shape, dtype=torch.float64):
+        return torch.zeros(shape, dtype=dtype, device=self.device)
+
+    def take_along_axis(self, x, idx, axis):
+        return torch.take_along_dim(self.asarray(x), idx, dim=axis)
+
+    def isfinite(self, x):
+        return torch.isfinite(self.asarray(x))
 
     def broadcast_arrays(self, *xs):
         return torch.broadcast_tensors(*(self.asarray(x) for x in xs))

@@ -49,8 +49,8 @@ geometry + backend + dataflow); see ``clear_profile_cache`` /
 (``configure_profile_store`` or ``$REPRO_TORCH_PROFILE_STORE``) -> compute.
 
 ``profile_gemms`` profiles many GEMMs at once through the batched pipeline
-(``repro_torch.core.pipeline``).  The lane-resolved profiles of the
-reference come with a later slice.
+(``repro_torch.core.pipeline``).  ``profile_gemm(..., lane_detail=True)``
+also resolves the counts per bus bit lane, on the same backends.
 """
 
 from __future__ import annotations
@@ -76,6 +76,7 @@ __all__ = [
     "popcount",
     "toggles_between",
     "stream_toggle_rate",
+    "stream_lane_toggles",
     "horizontal_stream",
     "vertical_partial_sums",
     "os_operand_streams",
@@ -146,6 +147,27 @@ def stream_toggle_rate(stream: np.ndarray, bits: int, axis: int = 0) -> float:
     cur = np.take(s, range(0, s.shape[axis] - 1), axis=axis)
     nxt = np.take(s, range(1, s.shape[axis]), axis=axis)
     return float(np.mean(toggles_between(cur, nxt, bits))) / float(bits)
+
+
+def stream_lane_toggles(stream: np.ndarray, bits: int, axis: int = 0) -> np.ndarray:
+    """Per-bit-lane toggle totals along ``axis`` of a value stream: (bits,) int64.
+
+    Entry b counts the flips of bus bit-lane b (LSB first) summed over every
+    transition and every wire bundle in the stream; ``result.sum() ==
+    bits * stream_toggle_rate(...) * transitions`` holds bit-exactly.  The
+    numpy lane oracle behind ``profile_gemm(..., lane_detail=True)``.
+    """
+    s = np.asarray(stream)
+    out = np.zeros(bits, np.int64)
+    if s.shape[axis] < 2:
+        return out
+    cur = np.take(s, range(0, s.shape[axis] - 1), axis=axis)
+    nxt = np.take(s, range(1, s.shape[axis]), axis=axis)
+    x = _to_bus_repr(cur, bits) ^ _to_bus_repr(nxt, bits)
+    one = np.uint64(1)
+    for b in range(bits):
+        out[b] = int(((x >> np.uint64(b)) & one).sum())
+    return out
 
 
 def horizontal_stream(a_tile: np.ndarray) -> np.ndarray:
@@ -596,6 +618,44 @@ def _profile_numpy(a, w, b_h, b_v, plan) -> tuple[float, float, int, int]:
     return a_h, a_v, h_den, v_den
 
 
+def _lane_profile_numpy(
+    a: np.ndarray, w: np.ndarray, rows: int, cols: int, b_h: int, b_v: int
+) -> tuple[np.ndarray, np.ndarray]:
+    """Host-side WS per-lane oracle: exact (b_h,)/(b_v,) lane toggle totals.
+
+    Materializes the per-tile (T, R, C) partial-sum tensor like the
+    aggregate oracle: slow, kept as the verification reference for the
+    lane passes of ``repro_torch.kernels.activity_profile.ops``.
+    """
+    m, k = a.shape
+    n = w.shape[1]
+    n_tiles = -(-n // cols) if n else 0
+    h_lanes = stream_lane_toggles(a, b_h) * n_tiles
+    v_lanes = np.zeros(b_v, np.int64)
+    for k0 in range(0, k, rows):
+        for n0 in range(0, n, cols):
+            ps = vertical_partial_sums(a[:, k0 : k0 + rows], w[k0 : k0 + rows, n0 : n0 + cols])
+            v_lanes += stream_lane_toggles(ps.reshape(m, -1), b_v)
+    return h_lanes, v_lanes
+
+
+def _lane_profile_numpy_os(
+    a: np.ndarray, w: np.ndarray, rows: int, cols: int, b_h: int, b_v: int
+) -> tuple[np.ndarray, np.ndarray]:
+    """Host-side OS per-lane oracle (the lane form of ``_profile_numpy_os``)."""
+    m, k = a.shape
+    n = w.shape[1]
+    if k < 2 or m == 0 or n == 0:
+        return np.zeros(b_h, np.int64), np.zeros(b_v, np.int64)
+    h_streams, v_streams = os_operand_streams(a, w)
+    n_tiles = -(-n // cols)
+    m_tiles = -(-m // rows)
+    return (
+        stream_lane_toggles(h_streams, b_h) * n_tiles,
+        stream_lane_toggles(v_streams, b_v) * m_tiles,
+    )
+
+
 def os_stream_counts(
     base_h: int, base_v: int, m: int, k: int, n: int, rows: int, cols: int
 ) -> tuple[int, int, int, int]:
@@ -693,9 +753,16 @@ def profile_gemm(
     worth subsampling (passing the limits with OS raises).
 
     ``backend`` is one of ``BACKENDS`` (see the module docstring); None
-    takes ``$REPRO_TORCH_ACTIVITY_BACKEND``, else ``"auto"``.  ``lane_detail=True``
-    (the per-bit-lane toggle totals) is not ported yet and raises
-    ``NotImplementedError``.
+    takes ``$REPRO_TORCH_ACTIVITY_BACKEND``, else ``"auto"``.
+
+    ``lane_detail=True`` additionally measures the exact per-bit-lane toggle
+    totals (``ActivityProfile.h_lane_toggles``/``v_lane_toggles``; the
+    aggregate activities are then derived from the lane sums, so aggregate
+    and lanes can never disagree).  ``"cuda"`` runs the lane passes on the
+    card, ``"torch"`` on the CPU, ``"numpy"`` the lane oracle.
+    Lane-resolved profiling is exact-only (combining it with the subsample
+    limits raises) and costs a pass per bus lane where the aggregate
+    kernels run one popcount, so it is an explicit opt-in.
     """
     a = np.asarray(a, dtype=np.int64)
     w = np.asarray(w, dtype=np.int64)
@@ -714,12 +781,13 @@ def profile_gemm(
         (max_tiles is not None and total_tiles > max_tiles)
         or (max_stream is not None and m > max_stream)
     )
-    if lane_detail:
-        raise NotImplementedError(
-            "lane_detail=True needs the lane-resolved passes, which come with "
-            "port slice 4 (OS dataflow and lane resolution)"
+    if lane_detail and not exact:
+        raise ValueError(
+            "lane_detail requires exact profiling; drop max_tiles/max_stream"
         )
     mode: tuple = ("exact",) if exact else ("sub", max_tiles, max_stream, seed)
+    if lane_detail:
+        mode = (*mode, "lanes")
 
     # Resolve the backend BEFORE the cache lookup and key on it: an explicit
     # backend= request (oracle cross-checks, timing) must never be served
@@ -733,7 +801,29 @@ def profile_gemm(
         if hit is not None:
             return hit
 
-    if resolved == "numpy":
+    h_lanes = v_lanes = None
+    if lane_detail:
+        if resolved == "numpy":
+            lane_fn = _lane_profile_numpy_os if dataflow == "OS" else _lane_profile_numpy
+            h_lanes, v_lanes = lane_fn(a, w, rows, cols, b_h, b_v)
+            if dataflow == "OS":
+                _, _, h_den, v_den = os_stream_counts(0, 0, m, k, n, rows, cols)
+            else:
+                n_tiles = -(-n // cols) if n else 0
+                h_den = max(m - 1, 0) * k * n_tiles
+                v_den = max(m - 1, 0) * k * n
+        else:
+            from repro_torch.kernels.activity_profile.ops import profile_gemm_lane_toggles
+
+            lc = profile_gemm_lane_toggles(
+                a, w, rows, cols, b_h, b_v, dataflow=dataflow, engine=resolved
+            )
+            h_lanes = np.asarray(lc.h_lanes, np.int64)
+            v_lanes = np.asarray(lc.v_lanes, np.int64)
+            h_den, v_den = lc.h_transitions, lc.v_transitions
+        a_h = int(h_lanes.sum()) / (h_den * b_h) if h_den else 0.0
+        a_v = int(v_lanes.sum()) / (v_den * b_v) if v_den else 0.0
+    elif resolved == "numpy":
         if dataflow == "OS":
             a_h, a_v, h_den, v_den = _profile_numpy_os(a, w, rows, cols, b_h, b_v)
         else:
@@ -756,6 +846,8 @@ def profile_gemm(
         v_transitions=v_den,
         input_zero_fraction=float(np.mean(a == 0)),
         input_elements=int(a.size),
+        h_lane_toggles=None if h_lanes is None else tuple(int(v) for v in h_lanes),
+        v_lane_toggles=None if v_lanes is None else tuple(int(v) for v in v_lanes),
     )
     if key is not None:
         _cache_put(key, profile)

@@ -22,7 +22,13 @@ Operand contract: values must be int16-range (|x| < 2^15), as everything
 ``repro_torch.core.quant`` emits at 16 bits is.  ``repro_torch.core.switching``
 sends anything wider to the numpy oracle.  The ``MAX_FUSED_*`` bounds are the
 reference engine's contracts, kept so that ``backend="auto"`` resolves as it
-does there.  The lane-resolved passes come with a later slice.
+does there.
+
+``profile_gemm_lane_toggles`` and ``stream_lane_toggle_totals`` resolve the
+same counts per bus bit lane.  Their passes are PyTorch programs on the
+engine's device, not kernels: the WS vertical pass walks each k strip in
+time blocks of bounded size, carrying the strip's last int64 partial-sum
+row from block to block, so the (T, R, C) tensor never exists.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from repro_torch.kernels.activity_profile.kernel import (
 
 __all__ = [
     "ToggleCounts",
+    "LaneToggleCounts",
     "ENGINES",
     "INT16_SAFE_MAX",
     "MAX_FUSED_K",
@@ -48,7 +55,9 @@ __all__ = [
     "MAX_FUSED_LANES",
     "operands_fit_fused",
     "profile_gemm_toggles",
+    "profile_gemm_lane_toggles",
     "stream_toggle_total",
+    "stream_lane_toggle_totals",
 ]
 
 INT16_SAFE_MAX = (1 << 15) - 1
@@ -57,6 +66,10 @@ INT16_SAFE_MAX = (1 << 15) - 1
 MAX_FUSED_K = 1 << 25
 MAX_FUSED_ROWS = 1 << 15
 MAX_FUSED_LANES = 1 << 25
+# int64 elements of one block of a lane pass (32 MiB): a block of the WS
+# vertical pass holds (block_t + 1, rows, N) partial sums, and each of the
+# few temporaries of its lane counts is the same size.
+LANE_BLOCK_ELEMENTS = 1 << 22
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,6 +93,32 @@ class ToggleCounts:
             self.h_transitions + other.h_transitions,
             self.v_transitions + other.v_transitions,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class LaneToggleCounts:
+    """Exact per-bit-lane toggle totals for one GEMM.
+
+    ``h_lanes[b]`` / ``v_lanes[b]`` count the toggles of bus bit-lane ``b``
+    (LSB first) summed over every wire bundle and transition of the
+    respective direction; every lane shares the bundle's transition
+    denominator, so lane activities are ``lanes / transitions`` and the
+    lane sums reproduce the aggregate ``ToggleCounts`` bit-exactly
+    (``sum(h_lanes) == h_toggles`` etc.).
+    """
+
+    h_lanes: tuple[int, ...]
+    v_lanes: tuple[int, ...]
+    h_transitions: int
+    v_transitions: int
+
+    def totals(self) -> ToggleCounts:
+        return ToggleCounts(
+            sum(self.h_lanes), sum(self.v_lanes), self.h_transitions, self.v_transitions
+        )
+
+    def activities(self, b_h: int, b_v: int) -> tuple[float, float]:
+        return self.totals().activities(b_h, b_v)
 
 
 def _fits_int16(arr: np.ndarray) -> bool:
@@ -201,3 +240,177 @@ def profile_gemm_toggles(
         _to_device(a, device), _to_device(w, device), rows, cols, b_h, b_v
     ).tolist()
     return ToggleCounts(h_tog, v_tog, h_trans, v_trans)
+
+
+# ---------------------------------------------------------------------------
+# Per-bit-lane toggle totals (lane-resolved rendering of the same counts)
+# ---------------------------------------------------------------------------
+#
+# Bus semantics match the aggregate counts: on a bus wider than the 32-bit
+# operand, lanes >= 32 of an operand stream are copies of its sign bit (they
+# all flip with it), while the WS partial-sum lanes >= 32 are the true high
+# bits of the int64 sum.  Each lane is taken as ``(x >> b) & 1`` of the
+# XORed values; ``>>`` is arithmetic, so no value is read as unsigned.
+
+
+def _compact_lanes(bits: int) -> int:
+    """Lanes counted on the device: 32 value lanes + one shared sign lane."""
+    return min(bits, 32) + (1 if bits > 32 else 0)
+
+
+def _expand_sign_lanes(cnt, bits: int) -> np.ndarray:
+    """(compact,) device counts -> (bits,) int64 per-lane totals."""
+    cnt = np.asarray(cnt, np.int64)
+    if bits <= 32:
+        return cnt
+    return np.concatenate([cnt[:32], np.repeat(cnt[32:33], bits - 32)])
+
+
+def _lane_counts(x: torch.Tensor, shifts) -> torch.Tensor:
+    """(len(shifts),) int64: the set bits of ``x`` at each shift, summed."""
+    return torch.stack([((x >> b) & 1).sum() for b in shifts])
+
+
+def _h_lane_toggles(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """Per-lane toggles of the (T, L) int32 lane streams ``x`` on a
+    ``bits``-wide bus: (``_compact_lanes(bits)``,) int64 on ``x``'s device.
+
+    Time blocks of at most ``LANE_BLOCK_ELEMENTS`` values, each seeded with
+    the last row of the block before it."""
+    t, lanes = x.shape
+    shifts = list(range(min(bits, 32))) + ([31] if bits > 32 else [])
+    out = torch.zeros(len(shifts), dtype=torch.int64, device=x.device)
+    block_t = max(1, LANE_BLOCK_ELEMENTS // max(lanes, 1))
+    for t0 in range(1, t, block_t):
+        seg = x[t0 - 1 : min(t0 + block_t, t)]
+        out += _lane_counts(seg[1:] ^ seg[:-1], shifts)
+    return out
+
+
+def _v_lane_toggles(a: torch.Tensor, w: torch.Tensor, rows: int, b_v: int) -> torch.Tensor:
+    """Per-lane toggles of every WS partial-sum bus of ``a @ w`` (int32, on
+    one device) on a ``rows``-deep array: (b_v,) int64 on their device.
+
+    Column tiling regroups the partial-sum streams without changing them, so
+    each k strip's (T, rows, N) sums are counted whole, ``block_t`` time
+    steps at a time (``block_t * rows * N <= LANE_BLOCK_ELEMENTS``, or one
+    step where a row alone is larger); the strip's last int64 partial-sum
+    row carries from one block to the next.
+    """
+    m, k = a.shape
+    n = w.shape[1]
+    out = torch.zeros(b_v, dtype=torch.int64, device=a.device)
+    a64 = a.to(torch.int64)
+    w64 = w.to(torch.int64)
+    for k0 in range(0, k, rows):
+        a_strip = a64[:, k0 : k0 + rows]
+        w_strip = w64[k0 : k0 + rows]
+        block_t = max(1, LANE_BLOCK_ELEMENTS // (a_strip.shape[1] * n))
+        prev = torch.cumsum(a_strip[0, :, None] * w_strip, dim=0)
+        for t0 in range(1, m, block_t):
+            s = torch.cumsum(a_strip[t0 : t0 + block_t, :, None] * w_strip[None], dim=1)
+            lag = torch.cat([prev[None], s[:-1]])
+            out += _lane_counts(s ^ lag, range(b_v))
+            prev = s[-1]
+    return out
+
+
+def stream_lane_toggle_totals(x: np.ndarray, bits: int, *, engine: str = "cuda") -> np.ndarray:
+    """Per-bit-lane totals of ``stream_toggle_total``: (bits,) int64.
+
+    ``x`` is (T, L) int16-range stream lanes on a ``bits``-wide bus; entry b
+    counts the toggles of bus bit b summed over all L wires and T-1
+    transitions (``sum(result) == stream_toggle_total(x, bits)``,
+    bit-exactly).
+    """
+    x = np.asarray(x)
+    t, lanes = x.shape
+    device = engine_device(engine)
+    if t < 2 or lanes == 0:
+        return np.zeros(bits, np.int64)
+    if not _fits_int16(x):
+        raise ValueError(
+            "fused engine needs int16-range stream values; "
+            "use the numpy backend for wider values"
+        )
+    if lanes >= MAX_FUSED_LANES:
+        raise ValueError("fused engine supports < 2^25 stream lanes")
+    compact = _h_lane_toggles(_to_device(x, device), bits)
+    return _expand_sign_lanes(compact.cpu().numpy(), bits)
+
+
+def profile_gemm_lane_toggles(
+    a: np.ndarray,
+    w: np.ndarray,
+    rows: int,
+    cols: int,
+    b_h: int,
+    b_v: int,
+    *,
+    dataflow: str = "WS",
+    engine: str = "cuda",
+) -> LaneToggleCounts:
+    """Exact per-bit-lane toggle totals for GEMM ``a @ w`` on an R x C array.
+
+    The lane-resolved sibling of ``profile_gemm_toggles`` (same operand and
+    dimension contracts, same tiling semantics under both dataflows); the
+    lane sums equal the aggregate totals bit-for-bit.  ``engine="cuda"``
+    runs the lane passes on the current CUDA device, ``"torch"`` on the CPU.
+    """
+    a = np.asarray(a)
+    w = np.asarray(w)
+    if a.ndim != 2 or w.ndim != 2 or a.shape[1] != w.shape[0]:
+        raise ValueError(f"bad GEMM shapes {a.shape} x {w.shape}")
+    if not 1 <= b_h <= 64 or not 1 <= b_v <= 64:
+        raise ValueError("bus widths must be in [1, 64]")
+    if dataflow not in ("WS", "OS"):
+        raise ValueError(f"unknown dataflow {dataflow!r}")
+    device = engine_device(engine)
+    if not operands_fit_fused(a, w):
+        raise ValueError(
+            "fused engine needs int16-range operands (products must fit int32); "
+            "use the numpy backend for wider values"
+        )
+    m, k = a.shape
+    n = w.shape[1]
+
+    if dataflow == "OS":
+        if max(m, n) >= MAX_FUSED_LANES:
+            raise ValueError(
+                "fused OS engine supports M, N < 2^25; use the numpy backend"
+            )
+        _, _, h_trans, v_trans = os_stream_counts(0, 0, m, k, n, rows, cols)
+        if k < 2 or m == 0 or n == 0:
+            return LaneToggleCounts((0,) * b_h, (0,) * b_v, h_trans, v_trans)
+        base_h = stream_lane_toggle_totals(np.ascontiguousarray(a.T), b_h, engine=engine)
+        base_v = stream_lane_toggle_totals(w, b_v, engine=engine)
+        n_tiles = -(-n // cols)
+        m_tiles = -(-m // rows)
+        return LaneToggleCounts(
+            tuple(int(v) for v in n_tiles * base_h),
+            tuple(int(v) for v in m_tiles * base_v),
+            h_trans,
+            v_trans,
+        )
+
+    if k + rows >= MAX_FUSED_K:
+        raise ValueError("fused engine supports K < 2^25; use the numpy backend")
+    if rows >= MAX_FUSED_ROWS:
+        raise ValueError("fused engine supports rows < 2^15; use the numpy backend")
+    n_tiles = -(-n // cols) if n else 0
+    h_trans = max(m - 1, 0) * k * n_tiles
+    v_trans = max(m - 1, 0) * k * n
+    if m < 2 or k == 0 or n == 0:
+        return LaneToggleCounts((0,) * b_h, (0,) * b_v, h_trans, v_trans)
+    a_t = _to_device(a, device)
+    w_t = _to_device(w, device)
+    counts = torch.cat([_h_lane_toggles(a_t, b_h), _v_lane_toggles(a_t, w_t, rows, b_v)])
+    counts = counts.cpu().numpy()
+    h_lanes = n_tiles * _expand_sign_lanes(counts[: _compact_lanes(b_h)], b_h)
+    v_lanes = counts[_compact_lanes(b_h) :]
+    return LaneToggleCounts(
+        tuple(int(v) for v in h_lanes),
+        tuple(int(v) for v in v_lanes),
+        h_trans,
+        v_trans,
+    )

@@ -17,7 +17,11 @@ and, per dataflow:
     geometry for WS and ``os_dataflow_geometry(16, 32, 32)`` for OS;
   * what the batched scheduler did for the whole network: the
     ``BatchStats`` fields of ``profile_network(..., return_stats=True)``
-    that describe its shape classes and passes (``BATCH_STATS_FIELDS``).
+    that describe its shape classes and passes (``BATCH_STATS_FIELDS``);
+
+and, for the design-space example grid (``DESIGN_SPACE``, 40 points over
+the first three Table-I layers), the (layer, point) activities of
+``measured_design_activities`` and the same ``BatchStats`` fields.
 
     PYTHONPATH=src python tests/_torch_reference.py    # rewrites the file
 
@@ -39,6 +43,14 @@ BITS = 16
 BATCH_STATS_FIELDS = (
     "jobs", "passes", "pass_reuse", "buckets", "tasks", "strips", "serial_fallbacks",
 )
+DESIGN_SPACE = {
+    "rows": [16, 32],
+    "cols": [8, 16, 32, 64, 128],
+    "input_bits": [16],
+    "dataflows": ["WS", "OS"],
+    "bus_invert": [False, True],
+}
+DESIGN_SPACE_LAYERS = 3
 
 
 def _verdict(geom, profiles) -> dict:
@@ -113,12 +125,26 @@ def build_reference() -> dict:
                 "profile": dataclasses.asdict(p),
             }
         layers.append(entry)
+    from repro.core.design_space import DesignSpace
+    from repro.core.workloads import measured_design_activities
+
+    a_h, a_v, stats = measured_design_activities(
+        DesignSpace(**DESIGN_SPACE).expand(), RESNET50_TABLE1[:DESIGN_SPACE_LAYERS],
+        backend="pallas", use_cache=False, return_stats=True,
+    )
     return {
         "rows": ROWS,
         "cols": COLS,
         "bits": BITS,
         "layers": layers,
         "batch_stats": batch_stats,
+        "design_space": {
+            "axes": DESIGN_SPACE,
+            "layers": DESIGN_SPACE_LAYERS,
+            "a_h": a_h.tolist(),
+            "a_v": a_v.tolist(),
+            "batch_stats": {key: getattr(stats, key) for key in BATCH_STATS_FIELDS},
+        },
         "verdict": {
             "WS": _verdict(SystolicArrayGeometry.paper_32x32(), profiles["WS"]),
             "OS": _verdict(os_dataflow_geometry(BITS, ROWS, COLS), profiles["OS"]),

@@ -234,9 +234,12 @@ def test_auto_backend_degrades_to_numpy_for_wide_operands(dataflow):
 
 
 def test_lane_detail_waits_for_its_slice():
+    """lane_detail=True runs on the port (its lane passes came with their
+    slice) and gives the reference's lane-resolved profile."""
     a, w = _rand_gemm((8, 4, 4), lo=0, hi=10)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        profile_gemm(a, w, 4, 4, 16, 37, backend="torch", lane_detail=True)
+    p = profile_gemm(a, w, 4, 4, 16, 37, backend="torch", lane_detail=True, use_cache=False)
+    ref = ref_profile_gemm(a, w, 4, 4, 16, 37, backend="numpy", lane_detail=True, use_cache=False)
+    assert p.as_dict() == ActivityProfile.from_dict(dataclasses.asdict(ref)).as_dict()
 
 
 @pytest.mark.parametrize(

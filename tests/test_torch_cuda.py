@@ -780,3 +780,99 @@ def test_flash_attention_bf16_takes_the_tensor_cores(card):
     after = _counts(FA.flash_attention_fwd)
     assert after["tc_launches"] == before["tc_launches"] + 1
     assert after["tf32_launches"] == before["tf32_launches"]
+
+
+# --- the design-space path: lane passes and float64 evaluators on the card -----
+
+# The lane passes at their edges (as tests/test_torch_lanes.py EDGES): T = 2,
+# K below rows, N off the column groups, b_v of 33-64, b_h past 32, at the
+# int16 extremes; one case of several lane blocks (L1's first k strip).
+LANE_EDGES = [
+    (2, 5, 3, 8, 8, 16, 37, "WS"),
+    (19, 5, 7, 8, 4, 16, 33, "WS"),
+    (33, 70, 10, 16, 8, 16, 64, "WS"),
+    (40, 17, 33, 16, 32, 40, 48, "WS"),
+    (3136, 32, 64, 32, 32, 16, 37, "WS"),
+    (2, 3, 4, 8, 8, 16, 16, "OS"),
+    (30, 25, 40, 8, 16, 33, 50, "OS"),
+]
+
+
+@pytest.mark.parametrize("case", LANE_EDGES, ids=lambda c: "-".join(map(str, c)))
+def test_lane_passes_match_the_cpu_pass(card, case):
+    from repro_torch.kernels.activity_profile.ops import profile_gemm_lane_toggles
+
+    m, k, n, rows, cols, b_h, b_v, dataflow = case
+    rng = np.random.default_rng(list(case[:7]))
+    a = rng.choice([-32767, 32767, -1, 0, 1, 12345], size=(m, k))
+    w = rng.choice([-32767, 32767, -1, 0, 1, -23456], size=(k, n))
+    kw = dict(dataflow=dataflow)
+    got = profile_gemm_lane_toggles(a, w, rows, cols, b_h, b_v, engine="cuda", **kw)
+    assert got == profile_gemm_lane_toggles(a, w, rows, cols, b_h, b_v, engine="torch", **kw)
+    assert got.totals() == profile_gemm_toggles(a, w, rows, cols, b_h, b_v, engine="cuda", **kw)
+
+
+def _assert_engines_agree(got, want, fields):
+    for name in fields:
+        g, w = np.asarray(getattr(got, name), float), np.asarray(getattr(want, name), float)
+        ok = np.isfinite(w)
+        assert (np.isfinite(g) == ok).all(), name
+        rtol = 1e-7 if name == "aspect_opt_gss" else 1e-10  # see test_torch_design_space.py
+        np.testing.assert_allclose(g[ok], w[ok], rtol=rtol, atol=0, err_msg=name)
+
+
+def test_design_space_evaluator_cuda_matches_numpy(card):
+    import dataclasses
+
+    from repro_torch.core.design_space import DesignSpace, evaluate_design_space, sweep_bus_power
+
+    grid = DesignSpace(rows=(8, 32), cols=(8, 16, 128), input_bits=(8, 16), dataflows=("WS", "OS"),
+                       bus_invert=(False, True)).expand()
+    rng = np.random.default_rng(3)
+    a_h = rng.uniform(0.0, 0.5, (3, grid.n_points))
+    a_v = rng.uniform(0.0, 0.7, (3, grid.n_points))
+    got = evaluate_design_space(grid, a_h, a_v, engine="cuda")
+    want = evaluate_design_space(grid, a_h, a_v, engine="numpy")
+    fields = [f.name for f in dataclasses.fields(got) if f.name not in ("grid", "sweep_report")]
+    _assert_engines_agree(got, want, fields)
+    assert np.array_equal(got.pareto(), want.pareto())
+    aspects = np.geomspace(1 / 16, 16, 7)
+    np.testing.assert_allclose(
+        sweep_bus_power(grid, a_h[0], a_v[0], aspects, engine="cuda"),
+        sweep_bus_power(grid, a_h[0], a_v[0], aspects, engine="numpy"), rtol=1e-10, atol=0,
+    )
+
+
+@pytest.mark.parametrize("variant", ["lanes", "bus_invert", "objective"])
+def test_layout_evaluator_cuda_matches_numpy(card, variant):
+    from repro_torch.core.design_space import DesignSpace
+    from repro_torch.core.workloads import Gemm
+    from repro_torch.layout import (
+        LayoutPowerConfig,
+        ObjectiveSpec,
+        evaluate_layout_space,
+        lower_partition_coeffs,
+        pod_layouts,
+    )
+
+    grid = DesignSpace(rows=(8, 16, 32), cols=(16, 32, 64), input_bits=(8, 16), dataflows=("WS", "OS"),
+                       bus_invert=(False, True) if variant == "bus_invert" else (False,)).expand()
+    layouts = ("uniform", "serpentine2", "serpentine4") + pod_layouts((1, 2, 4))
+    rng = np.random.default_rng(5)
+    a_h = rng.uniform(0.05, 0.5, (2, grid.n_points))
+    a_v = rng.uniform(0.05, 0.7, (2, grid.n_points))
+    kw = dict(layouts=layouts, cfg=LayoutPowerConfig(max_envelope_aspect=6.0, preload_duty=0.1))
+    if variant == "lanes":
+        kw["h_lanes"] = rng.uniform(0.0, 0.5, (2, grid.n_points, 64))
+        kw["v_lanes"] = rng.uniform(0.0, 0.8, (2, grid.n_points, 64))
+    fields = ["aspect_opt", "bus_power_opt", "aspect_robust", "bus_power_robust", "overhead_w",
+              "wirelength_um"]
+    if variant == "objective":
+        gemms = [Gemm("a", 64, 128, 64), Gemm("b", 50, 20, 30)]
+        kw["objective"] = ObjectiveSpec(lower_partition_coeffs(grid, layouts, gemms),
+                                        rng.uniform(1e-3, 5e-3, (2, grid.n_points)))
+        fields += ["j_per_mac", "j_per_mac_robust"]
+    got = evaluate_layout_space(grid, a_h, a_v, engine="cuda", **kw)
+    want = evaluate_layout_space(grid, a_h, a_v, engine="numpy", **kw)
+    _assert_engines_agree(got, want, fields)
+    assert np.array_equal(got.best_layout, want.best_layout)

@@ -186,3 +186,25 @@ def test_verdict_from_reference_profiles_matches_file(dataflow):
 
 def test_reference_file_is_what_the_jax_package_computes():
     assert build_reference() == REFERENCE
+
+
+def test_design_space_grid_in_file_agrees_with_the_layer_profiles():
+    """The file's design-space activities (the example grid over the first
+    three layers) are the Table-I profiles at the 32x32 WS point, and every
+    point of one activity class carries its class's values."""
+    from repro_torch.core.design_space import DesignSpace
+    from repro_torch.core.workloads import _activity_classes
+
+    ds = REFERENCE["design_space"]
+    grid = DesignSpace(**ds["axes"]).expand()
+    a_h, a_v = np.asarray(ds["a_h"]), np.asarray(ds["a_v"])
+    assert a_h.shape == a_v.shape == (ds["layers"], grid.n_points)
+    paper = (grid.rows == 32) & (grid.cols == 32) & ~grid.dataflow_os & ~grid.bus_invert
+    for i, layer in enumerate(REFERENCE["layers"][: ds["layers"]]):
+        assert (a_h[i, paper] == layer["WS"]["profile"]["a_h"]).all()
+        assert (a_v[i, paper] == layer["WS"]["profile"]["a_v"]).all()
+    classes, point_class = _activity_classes(grid)
+    assert len(classes) == ds["batch_stats"]["jobs"] // ds["layers"]
+    for c in range(len(classes)):
+        sel = point_class == c
+        assert (a_h[:, sel] == a_h[:, sel][:, :1]).all() and (a_v[:, sel] == a_v[:, sel][:, :1]).all()
