@@ -92,6 +92,28 @@ Phases (any mismatch exits non-zero; nothing is caught):
      within 1e-10 (the golden-section argmin within 1e-7, the power at it
      within 1e-10); and the paper's savings through the segment engine
      (W/H* = 3.78, 9.1% +/- 0.5 and 2.1% +/- 0.5 saved).
+   Then the serving path (phase 3d, ``serving_path_check``), with the same
+   count discipline: K2 and K3 against their plain versions on the buckets
+   the scheduler builds for the path's own jobs (48 jobs: 16 clipped
+   operand classes x 3 activity classes), then
+   ``codesign("mixtral_8x7b", "decode_heavy")`` at Mixtral-8x7B's full
+   published widths (72 GEMM shape classes, the 40-point ``DEFAULT_SPACE``
+   x 4 ``DEFAULT_FAMILIES``, profiling clip (128, 512, 256)): K2 and K3 on
+   the card, the objective in float64 on the card.  The job set, the
+   measured activities (bit for bit) and the scheduler's statistics must
+   equal ``src/repro_torch/data/serving_reference.json`` (the JAX
+   package's), ``j_per_mac``, ``j_per_mac_robust`` and
+   ``j_per_token_robust`` lie within 1e-10 of its float64 values, and the
+   best, decode and prefill cells equal its.  The same objective through
+   the checkpointed sweep (chunks of 8 points): a healthy run is all on
+   the "cuda" rung; resumed and interrupted-then-resumed runs equal the
+   uninterrupted one bit for bit; chunked equals unchunked bit for bit (a
+   field that does not is named and held within 1e-12); a chunk poisoned
+   through ``runtime.faults`` is recorded on the "numpy" rung and agrees
+   with the plain result within 1e-10.  Prints the path's wall by step,
+   traces of the activities and the objective (device busy, K2 and K3
+   device time) and the objective's warm (point x layout) cells/s beside
+   ``engine="numpy"``.
 4. Time each kernel at the main paths' shapes with CUDA events (warm-up,
    then the median of repeated calls) beside its plain version, its bound
    and, where one PyTorch call computes the same function, that call.  The
@@ -119,7 +141,9 @@ Phases (any mismatch exits non-zero; nothing is caught):
    design-space path too.
 
 The last lines are the ``kernels`` JSON object (every kernel; K6's and
-K7's "tf32" routes and K7's prep kernel with no launch on the main path), the
+K7's "tf32" routes and K7's prep kernel with no launch on the main path;
+K2's and K3's launches on the design-space and serving paths beside their
+main path's), the
 ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when no
 CUDA device is available or when the repository's ``src/`` is missing.
@@ -368,6 +392,213 @@ def check(cond: bool, msg: str) -> None:
 
 def rel_close(got: float, want: float) -> bool:
     return abs(got - want) <= REL_TOL * max(abs(want), 1e-300)
+
+
+# The serving path (phase 3d): the reference's README example at
+# Mixtral-8x7B's full published widths; the sweep's chunk size; the fields
+# of the objective held to the reference file and to each other.
+SERVING_CHUNK = 8
+SERVING_FIELDS = ("feasible", "aspect_lo", "aspect_hi", "aspect_opt", "bus_power_opt",
+                  "aspect_robust", "bus_power_robust", "overhead_w", "wirelength_um",
+                  "utilization", "j_per_mac", "j_per_mac_robust")
+
+
+def serving_path_check(*, smi, reset_counts, read_counts, host_timed, stacked, check_k2,
+                       check_k3) -> dict:
+    """Phase 3d: ``codesign("mixtral_8x7b", "decode_heavy")`` on the card
+    against ``src/repro_torch/data/serving_reference.json`` (the JAX
+    package's), K2 and K3 against their plain versions on the path's own
+    strips, and the same objective through the checkpointed sweep.  Returns
+    the path's kernel launches and wall time."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import workloads as wl
+    from repro_torch.core.objective import evaluate_fleet_objective
+    from repro_torch.core.sweep import SweepConfig, SweepInterrupted
+    from repro_torch.core.switching import clear_profile_cache
+    from repro_torch.runtime import faults
+    from repro_torch.serving import (
+        DEFAULT_FAMILIES,
+        DEFAULT_SPACE,
+        codesign,
+        get_preset,
+        weighted_gemms,
+    )
+
+    ref = json.loads((ROOT / "src" / "repro_torch" / "data" / "serving_reference.json").read_text())
+    arch, traffic, clip = ref["arch"], ref["traffic"], tuple(ref["clip"])
+    grid = DEFAULT_SPACE.expand()
+
+    # 1. K2 and K3 against their plain versions on the buckets the scheduler
+    # builds for this path's jobs (outside the counted run).
+    js = weighted_gemms(get_arch(arch), get_preset(traffic))
+    jobs, _, n_unique, _ = wl._gemm_activity_jobs(grid, js.gemms, js.densities, None, clip, None)
+    ws_buckets, os_buckets = stacked(jobs)
+    for b, arrays in ws_buckets:
+        what = f"serving bucket {b.rows}x{b.cols} b_h={b.b_h} b_v={b.b_v} t_seg={b.t_seg}"
+        check_k2(arrays, b.b_v, what)
+        check_k3(arrays[0], b.b_h, what)
+    for b, strips_t in os_buckets:
+        check_k3(strips_t, b.bits, f"serving OS stream bucket bits={b.bits} t_seg={b.t_seg}")
+    print(f"  serving buckets: {len(jobs)} jobs ({n_unique} operand classes x "
+          f"{len(jobs) // n_unique} activity classes): K2 = plain on {len(ws_buckets)} WS buckets "
+          f"({sum(a[2].shape[0] for _, a in ws_buckets)} tasks), K3 = plain on those strips and "
+          f"{len(os_buckets)} OS stream buckets "
+          f"({sum(s_.shape[0] for _, s_ in os_buckets)} strips)", flush=True)
+
+    # 2. The path through its entry point, counted, then its steps timed.
+    clear_profile_cache()
+    reset_counts()
+    res, wall_ms = host_timed(lambda: codesign(arch, traffic, use_cache=False))
+    counts = read_counts()
+    for name in ("ws_task_toggles", "strip_toggles"):
+        check(counts[name] > 0, f"{name} was not launched on the serving path")
+    step_ms = {}
+    js2, step_ms["job set"] = host_timed(lambda: weighted_gemms(get_arch(arch), get_preset(traffic)))
+    (a_h, a_v, stats), step_ms["activities"] = host_timed(lambda: wl.measured_design_gemm_activities(
+        grid, js2.gemms, densities=js2.densities, clip=clip, use_cache=False, return_stats=True))
+    kw = dict(layouts=DEFAULT_FAMILIES, weights=js2.weights, macs_per_token=js2.macs_per_token)
+    ev, step_ms["objective"] = host_timed(lambda: evaluate_fleet_objective(
+        grid, a_h, a_v, js2.gemms, **kw))
+
+    # 3. Against the JAX package's file.
+    jr = ref["jobset"]
+    got_js = res.jobset
+    check([[g.name, g.m, g.k, g.n] for g in got_js.gemms] == jr["gemms"],
+          "serving job set: GEMMs differ from the reference file's")
+    check(got_js.weights.tolist() == jr["weights"] and got_js.mac_rate.tolist() == jr["mac_rate"]
+          and list(got_js.densities) == jr["densities"] and list(got_js.regimes) == jr["regimes"]
+          and got_js.macs_per_token == jr["macs_per_token"],
+          "serving job set: weights, rates, densities or MACs/token differ from the file's")
+    check(np.array_equal(a_h, ref["a_h"]) and np.array_equal(a_v, ref["a_v"]),
+          "serving activities differ from the reference file's")
+    got_stats = {key: getattr(stats, key) for key in BATCH_STATS_FIELDS}
+    check(got_stats == ref["batch_stats"] and stats.degraded == stats.skipped == 0
+          and not stats.failure_report,
+          f"serving scheduler: stats {got_stats} reference {ref['batch_stats']}")
+    err = {}
+    for name, got in (("j_per_mac", res.eval.j_per_mac),
+                      ("j_per_mac_robust", res.eval.j_per_mac_robust),
+                      ("j_per_token_robust", res.eval.j_per_token_robust)):
+        g, w = np.asarray(got, float), np.asarray(ref[name], float)
+        ok = np.isfinite(w)
+        check(bool((np.isfinite(g) == ok).all()), f"serving {name}: feasibility differs")
+        err[name] = float(np.max(np.abs(g[ok] - w[ok]) / np.abs(w[ok])))
+        check(err[name] <= ENGINE_RTOL, f"serving {name}: {err[name]!r} from the reference file")
+    cells = {"best": list(res.best_cell),
+             **{r: list(res.regime_cell(r)) for r in ("decode", "prefill")}}
+    check(cells == {"best": ref["best_cell"], **ref["regime_cells"]},
+          f"serving cells {cells}, reference {ref['best_cell']} {ref['regime_cells']}")
+    for f in SERVING_FIELDS:
+        check(np.asarray(getattr(ev, f)).tobytes() == np.asarray(getattr(res.eval, f)).tobytes(),
+              f"serving {f}: the stepwise run differs from codesign's")
+    print(f"  serving: {arch} x {traffic}, {len(got_js.gemms)} GEMM shape classes, "
+          f"{got_js.macs_per_token:.6e} MAC/token; job set = file; activities = file (bit for "
+          f"bit), scheduler {got_stats}; J/op within {err['j_per_mac']:.1e}, fleet J/op "
+          f"{err['j_per_mac_robust']:.1e}, J/token {err['j_per_token_robust']:.1e} of the file; "
+          f"best {res.describe_cell(res.best_cell)}, {res.j_per_token!r} J/token; decode and "
+          f"prefill cells {cells['decode']} {cells['prefill']} = file", flush=True)
+
+    # 4. The same evaluation through the checkpointed sweep.
+    def sweep_eval(**sweep_kw):
+        return evaluate_fleet_objective(grid, a_h, a_v, js2.gemms, **kw,
+                                        sweep=SweepConfig(chunk_size=SERVING_CHUNK, **sweep_kw))
+
+    n_chunks = -(-grid.n_points // SERVING_CHUNK)
+    with tempfile.TemporaryDirectory() as tmp:
+        cold, step_ms["sweep cold"] = host_timed(lambda: sweep_eval(store=f"{tmp}/a"))
+        resumed, step_ms["sweep resumed"] = host_timed(lambda: sweep_eval(store=f"{tmp}/a"))
+        try:
+            sweep_eval(store=f"{tmp}/b", max_chunks=1)
+            fail("serving sweep: max_chunks=1 did not interrupt")
+        except SweepInterrupted as exc:
+            check(exc.report.chunks_evaluated == 1, f"serving sweep interrupted: {exc.report.summary()}")
+        finished = sweep_eval(store=f"{tmp}/b")
+    check(cold.sweep_report.rung_counts() == {"cuda": n_chunks} and not cold.sweep_report.failures,
+          f"serving sweep: {cold.sweep_report.summary()}")
+    check(resumed.sweep_report.chunks_resumed == n_chunks,
+          f"serving sweep resumed: {resumed.sweep_report.summary()}")
+    check(finished.sweep_report.chunks_resumed == 1
+          and finished.sweep_report.chunks_evaluated == n_chunks - 1,
+          f"serving sweep after the interruption: {finished.sweep_report.summary()}")
+    for f in SERVING_FIELDS:
+        for other, what in ((resumed, "resumed"), (finished, "interrupted and resumed")):
+            check(np.asarray(getattr(cold, f)).tobytes() == np.asarray(getattr(other, f)).tobytes(),
+                  f"serving sweep {what}: {f} differs from the uninterrupted sweep")
+    # chunked against unchunked: bit for bit where that holds, else within
+    # 1e-12, the field named
+    chunked_note = []
+    for f in SERVING_FIELDS:
+        g, w = np.asarray(getattr(cold, f)), np.asarray(getattr(ev, f))
+        if g.tobytes() == w.tobytes():
+            continue
+        ok = np.isfinite(w)
+        d = float(np.max(np.abs(g[ok] - w[ok]) / np.abs(w[ok])))
+        check(bool((np.isfinite(g) == ok).all()) and d <= REL_TOL,
+              f"serving sweep: chunked {f} {d!r} from unchunked")
+        chunked_note.append(f"{f} {d:.1e}")
+    with faults.injected([faults.FaultSpec("nan", match="cuda:j_per_mac|chunk2", max_fires=1)]):
+        poisoned = sweep_eval()
+    rep = poisoned.sweep_report
+    check(rep.rung_counts() == {"cuda": n_chunks - 1, "numpy": 1}
+          and rep.failures.actions() == {"degraded:numpy": 1}
+          and [r.rung for r in rep.records if r.index == 2] == ["numpy"],
+          f"serving sweep, poisoned chunk 2: {rep.summary()}")
+    for f in ("j_per_mac", "j_per_mac_robust", "bus_power_robust"):
+        g, w = np.asarray(getattr(poisoned, f)), np.asarray(getattr(ev, f))
+        ok = np.isfinite(w)
+        d = float(np.max(np.abs(g[ok] - w[ok]) / np.abs(w[ok])))
+        check(bool((np.isfinite(g) == ok).all()) and d <= ENGINE_RTOL,
+              f"serving sweep, poisoned chunk 2: {f} {d!r} from the plain result")
+    print(f"  serving sweep ({n_chunks} chunks of {SERVING_CHUNK} points): healthy "
+          f"{cold.sweep_report.rung_counts()}; resume = uninterrupted, bit for bit; max_chunks=1 "
+          f"interrupted and resumed = uninterrupted, bit for bit; chunked vs unchunked: "
+          + ("bit for bit" if not chunked_note else "bit for bit but " + ", ".join(chunked_note))
+          + f"; poisoned chunk 2 recorded on {rep.rung_counts()}, {rep.failures.actions()}, "
+          "within 1e-10 of the plain result", flush=True)
+
+    # 5. Where the activities' and the objective's time goes, and the
+    # objective's warm throughput beside engine="numpy".
+    events = {}
+    for label, fn in (("activities", lambda: wl.measured_design_gemm_activities(
+            grid, js2.gemms, densities=js2.densities, clip=clip, use_cache=False)),
+                      ("objective", lambda: evaluate_fleet_objective(grid, a_h, a_v, js2.gemms, **kw))):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t0) * 1e3
+        ev_ = {e.key: (e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+               and e.key not in PROFILER_OWN_EVENTS}
+        events[label] = ev_
+        busy = sum(ms for ms, _ in ev_.values())
+        kernels = {k: v for k, v in ev_.items() if "toggles" in k}
+        print(f"  serving {label} trace: wall {traced_ms:.1f} ms (profiler on), device busy "
+              f"{busy:.4f} ms = {100 * busy / traced_ms:.3f}%, {sum(n for _, n in ev_.values())} "
+              f"device events; " + (", ".join(f"{k[:40]} {ms:.4f} ms in {n}" for k, (ms, n)
+                                               in sorted(kernels.items())) or "no toggle kernel"))
+    n_cells = grid.n_points * len(DEFAULT_FAMILIES)
+    warm = sorted(host_timed(lambda: evaluate_fleet_objective(grid, a_h, a_v, js2.gemms, **kw))[1]
+                  for _ in range(5))[2]
+    warm_np = sorted(host_timed(lambda: evaluate_fleet_objective(
+        grid, a_h, a_v, js2.gemms, engine="numpy", **kw))[1] for _ in range(3))[1]
+    print(f"  serving objective, warm ({len(js2.gemms)} GEMMs x {grid.n_points} points x "
+          f"{len(DEFAULT_FAMILIES)} families): {warm:.3f} ms a call, {n_cells / warm * 1e3:,.0f} "
+          f"(point x layout) cells/s on the card; engine='numpy' {warm_np:.3f} ms, "
+          f"{n_cells / warm_np * 1e3:,.0f} cells/s | {smi}")
+    print(f"serving path (codesign, cache cleared): {wall_ms:.1f} ms; steps: " + ", ".join(
+        f"{label} {ms:.1f}" for label, ms in step_ms.items()) + f" ms; launches {counts} | {smi}",
+          flush=True)
+    return {"launches": {k: counts[k] for k in ("ws_task_toggles", "strip_toggles")},
+            "wall_ms": wall_ms}
 
 
 def main() -> None:
@@ -1278,6 +1509,12 @@ def main() -> None:
     print("design-space lane passes (ms): " + ", ".join(
         f"{name} {df} {ms:.2f}" for (name, df), ms in lane_ms.items()), flush=True)
 
+    # -- phase 3d: the serving path ----------------------------------------------
+    serving = serving_path_check(smi=smi, reset_counts=reset_counts, read_counts=read_counts,
+                                 host_timed=host_timed, stacked=stacked, check_k2=check_k2,
+                                 check_k3=check_k3)
+    main_ms["serving"] = serving["wall_ms"]
+
     # -- phase 4: times at the main paths' shapes ----------------------------
     def median_ms(fn, calls: int, bursts: int = 5) -> float:
         """Median over bursts of the mean per-call time of ``calls``
@@ -1838,6 +2075,8 @@ def main() -> None:
             row["main_path"] = False
         if name in ds_launches:
             row["design_space_launches"] = ds_launches[name]
+        if name in serving["launches"]:
+            row["serving_launches"] = serving["launches"][name]
         if name in parts:
             row["parts"] = parts[name]
         kernels.append(row)

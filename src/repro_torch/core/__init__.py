@@ -3,7 +3,8 @@ model), the switching-activity profiler that feeds it, and the design-space
 engine that explores it.
 
 Exports what the reference's ``core`` exports, except its deprecated
-``profile_ws_*`` aliases.
+``profile_ws_*`` aliases, and the sweep runner's and the fleet objective's
+entry points.
 """
 
 from repro_torch.core.floorplan import (  # noqa: F401
@@ -41,6 +42,15 @@ from repro_torch.core.switching import (  # noqa: F401
     profile_gemms,
     profile_tile,
     stream_toggle_rate,
+)
+from repro_torch.core.sweep import (  # noqa: F401
+    SweepConfig,
+    SweepInterrupted,
+    SweepReport,
+)
+from repro_torch.core.objective import (  # noqa: F401
+    evaluate_fleet_objective,
+    fleet_static_power,
 )
 from repro_torch.core.systolic import (  # noqa: F401
     DATAFLOWS,

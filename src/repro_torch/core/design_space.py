@@ -454,13 +454,6 @@ def _run_core(fn, args, device: torch.device | None):
     return {k: host(v) for k, v in out.items()} if isinstance(out, dict) else host(out)
 
 
-def _sweep_not_ported():
-    raise NotImplementedError(
-        "sweep= runs through the checkpointed sweep runner (core/sweep.py), "
-        "which is not ported yet: ROADMAP §1, item 3"
-    )
-
-
 @dataclasses.dataclass(frozen=True)
 class DesignSpaceEval:
     """Struct-of-arrays evaluation of a design grid (see field comments).
@@ -483,7 +476,7 @@ class DesignSpaceEval:
     area_um2: np.ndarray  # (P,) total PE array area
     bus_energy_per_mac_j: np.ndarray  # (P,) robust bus power / (R C f)
     neg_macs_per_cycle: np.ndarray  # (P,) -(R C): minimize == max throughput
-    sweep_report: object | None = None  # the sweep runner's report (not ported yet)
+    sweep_report: object | None = None  # SweepReport when run via ``sweep=``
 
     @property
     def n_points(self) -> int:
@@ -537,8 +530,12 @@ def evaluate_design_space(
     (``ENGINES``; see the module docstring); every engine computes the
     same float64 results up to the last bits of the elementwise functions.
 
-    ``sweep`` (the reference's chunked, checkpointed runner) is not ported
-    yet and raises ``NotImplementedError``.
+    ``sweep`` (a ``repro_torch.core.sweep.SweepConfig``) routes evaluation
+    through the chunked, checkpointed, guard-validated runner: the point
+    axis is split into fixed-shape chunks, each committed to a crash-safe
+    content-addressed store and validated against physical contracts and
+    scalar-oracle cross-checks; a killed sweep resumes bit-identically.
+    The returned eval carries the machine-readable ``sweep_report``.
     """
     p = grid.n_points
     a_h, a_v = _norm_activities(a_h, a_v, p)
@@ -553,7 +550,13 @@ def evaluate_design_space(
 
     device = _engine_device(engine)
     if sweep is not None:
-        _sweep_not_ported()
+        from repro_torch.core.sweep import run_design_sweep
+
+        out, report = run_design_sweep(
+            grid, a_h, a_v, w, cfg=cfg, gss_iters=gss_iters, engine=engine,
+            sweep=sweep,
+        )
+        return DesignSpaceEval(grid=grid, sweep_report=report, **out)
     args = (
         np.asarray(grid.rows, float),
         np.asarray(grid.cols, float),

@@ -130,7 +130,20 @@ class _TorchNamespace:
 
     def sum(self, x, axis=None, keepdims=False):
         x = self.asarray(x)
-        return torch.sum(x) if axis is None else torch.sum(x, dim=axis, keepdim=keepdims)
+        if axis is None:
+            return torch.sum(x)
+        axis %= x.dim()
+        if axis == x.dim() - 1:
+            return torch.sum(x, dim=axis, keepdim=keepdims)
+        # Any other axis: a left fold, numpy's order for a reduction over an
+        # axis that is not the innermost.  torch's kernel picks its order by
+        # shape, so a chunk of design points would not reproduce the bits of
+        # the whole grid; the fold gives every point the same sums.
+        parts = x.unbind(axis)
+        out = parts[0]
+        for part in parts[1:]:
+            out = out + part
+        return out.unsqueeze(axis) if keepdims else out
 
     def cumsum(self, x, axis):
         return torch.cumsum(self.asarray(x), dim=axis)

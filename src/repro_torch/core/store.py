@@ -1,9 +1,9 @@
 """Generic crash-safe on-disk content-addressed store.
 
 Every persisted artifact of the stack — activity profiles
-(``core.profile_store``) and, once the design-space slice is ported, sweep
-chunks — shares ONE audited implementation of the crash-safety machinery
-instead of re-growing it per subsystem.
+(``core.profile_store``) and sweep chunks (``core.sweep``) — shares ONE
+audited implementation of the crash-safety machinery instead of
+re-growing it per subsystem.
 
 Design constraints, in priority order:
 

@@ -10,7 +10,8 @@ seeds, so both packages profile byte-identical operands.
 (``repro_torch.core.pipeline``) as lazy ``conv_layer_job``s.  The
 ``measured_design_*`` adapters map a design grid's activity classes onto
 profiles, and the pod-partition model maps GEMMs onto k x k podded arrays.
-The LLM GEMM extraction (``gemms_for_arch``) comes with the serving slice.
+``gemms_for_arch`` extracts one transformer layer's GEMMs from an
+architecture config (``repro_torch.configs``).
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ __all__ = [
     "measured_design_lane_activities",
     "partition_gemm",
     "design_pod_partition",
+    "gemms_for_arch",
     "total_macs",
 ]
 
@@ -443,32 +445,11 @@ def gemm_profile_seed(
     return int.from_bytes(hashlib.sha256(key).digest()[:4], "little")
 
 
-def measured_design_gemm_activities(
-    grid,
-    gemms: Sequence[Gemm],
-    *,
-    densities: Sequence[float | None] | None = None,
-    seeds: Sequence[int] | None = None,
-    clip: tuple[int, int, int] | None = (128, 512, 256),
-    profile_cols: int | None = None,
-    backend: str | None = None,
-    use_cache: bool = True,
-    return_stats: bool = False,
-):
-    """Measured (G, P) activity arrays for a GEMM job set — the serving
-    adapter mirroring ``measured_design_activities``.
-
-    One ``gemm_job`` per activity class per GEMM (same class invariance
-    arguments: WS classes are (rows, b_h, b_v_data), OS classes the
-    geometry-free (b_h, b_v_data)) feeds every point of the grid.
-    ``clip`` bounds the profiled slice of LLM-sized GEMMs (toggle RATES
-    converge long before full model dims; the J/op objective still prices
-    utilization/spill/trunk from the FULL dims).  Seeds default to the
-    content-keyed ``gemm_profile_seed`` so shape classes shared across
-    models and traffic mixes dedup in the profile cache.
-    """
-    from repro_torch.core.pipeline import run_profile_batch
-
+def _gemm_activity_jobs(grid, gemms, densities, seeds, clip, profile_cols):
+    """The profile jobs of ``measured_design_gemm_activities``: one
+    ``gemm_job`` per activity class per unique operand class, in class-major
+    order, with the GEMM axis's index into the unique classes and each
+    point's activity class."""
     gemms = list(gemms)
     if not gemms:
         raise ValueError("no gemms")
@@ -518,13 +499,45 @@ def measured_design_gemm_activities(
         for cls in classes
         for g, density, seed in uniq_items
     ]
+    return jobs, gemm_uniq, len(uniq_items), point_class
+
+
+def measured_design_gemm_activities(
+    grid,
+    gemms: Sequence[Gemm],
+    *,
+    densities: Sequence[float | None] | None = None,
+    seeds: Sequence[int] | None = None,
+    clip: tuple[int, int, int] | None = (128, 512, 256),
+    profile_cols: int | None = None,
+    backend: str | None = None,
+    use_cache: bool = True,
+    return_stats: bool = False,
+):
+    """Measured (G, P) activity arrays for a GEMM job set — the serving
+    adapter mirroring ``measured_design_activities``.
+
+    One ``gemm_job`` per activity class per GEMM (same class invariance
+    arguments: WS classes are (rows, b_h, b_v_data), OS classes the
+    geometry-free (b_h, b_v_data)) feeds every point of the grid.
+    ``clip`` bounds the profiled slice of LLM-sized GEMMs (toggle RATES
+    converge long before full model dims; the J/op objective still prices
+    utilization/spill/trunk from the FULL dims).  Seeds default to the
+    content-keyed ``gemm_profile_seed`` so shape classes shared across
+    models and traffic mixes dedup in the profile cache.
+    """
+    from repro_torch.core.pipeline import run_profile_batch
+
+    jobs, gemm_uniq, n_u, point_class = _gemm_activity_jobs(
+        grid, gemms, densities, seeds, clip, profile_cols
+    )
     profiles, stats = run_profile_batch(jobs, backend=backend, use_cache=use_cache)
-    n_u = len(uniq_items)
+    n_classes = len(jobs) // n_u
     class_a_h = np.asarray(
-        [[profiles[c * n_u + u].a_h for c in range(len(classes))] for u in range(n_u)]
+        [[profiles[c * n_u + u].a_h for c in range(n_classes)] for u in range(n_u)]
     )
     class_a_v = np.asarray(
-        [[profiles[c * n_u + u].a_v for c in range(len(classes))] for u in range(n_u)]
+        [[profiles[c * n_u + u].a_v for c in range(n_classes)] for u in range(n_u)]
     )
     a_h = class_a_h[gemm_uniq][:, point_class]
     a_v = class_a_v[gemm_uniq][:, point_class]
@@ -769,6 +782,42 @@ def design_pod_partition(grid, layouts, gemms: Sequence[Gemm], weights=None):
         "trunk_words_per_mac": (w3 * h["trunk_words_per_mac"]).sum(axis=0),
         "spill_words_per_mac": (w3 * h["spill_words_per_mac"]).sum(axis=0),
     }
+
+
+def gemms_for_arch(cfg, seq_len: int, batch: int = 1) -> list[Gemm]:
+    """Per-token-batch GEMM set of one transformer layer + vocab projection.
+
+    ``cfg`` is a ``repro_torch.configs.registry.ArchConfig``. M is tokens
+    (batch * seq), K/N the weight dims. MoE experts contribute their active
+    (top-k) share of tokens. Feeds the paper's floorplan optimization with
+    LLM inference workloads.
+    """
+    tokens = seq_len * batch
+    d = cfg.d_model
+    head_dim = cfg.head_dim
+    gemms: list[Gemm] = [
+        Gemm("q_proj", tokens, d, cfg.num_heads * head_dim),
+        Gemm("k_proj", tokens, d, cfg.num_kv_heads * head_dim),
+        Gemm("v_proj", tokens, d, cfg.num_kv_heads * head_dim),
+        Gemm("o_proj", tokens, cfg.num_heads * head_dim, d),
+    ]
+    if cfg.num_experts > 1:
+        ff = cfg.d_ff
+        active_tokens = tokens * cfg.top_k
+        gemms += [
+            Gemm("moe_gate", tokens, d, cfg.num_experts),
+            Gemm("expert_up", active_tokens, d, ff),
+            Gemm("expert_gate", active_tokens, d, ff),
+            Gemm("expert_down", active_tokens, ff, d),
+        ]
+    elif cfg.d_ff > 0:
+        gemms += [
+            Gemm("ffn_up", tokens, d, cfg.d_ff),
+            Gemm("ffn_gate", tokens, d, cfg.d_ff),
+            Gemm("ffn_down", tokens, cfg.d_ff, d),
+        ]
+    gemms.append(Gemm("lm_head", tokens, d, cfg.vocab_size))
+    return gemms
 
 
 def total_macs(gemms: Sequence[Gemm]) -> int:

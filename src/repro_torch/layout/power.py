@@ -62,7 +62,6 @@ from repro_torch.core.design_space import (
     _engine_device,
     _norm_activities,
     _run_core,
-    _sweep_not_ported,
 )
 from repro_torch.core.floorplan import _xp
 from repro_torch.layout.coeffs import (
@@ -554,7 +553,7 @@ class LayoutSpaceEval:
     # MACs per served token of the workload mix (serving co-design: a
     # traffic model's MAC/s over tokens/s) — turns J/op answers into J/token
     macs_per_token: float | None = None
-    sweep_report: object | None = None  # the sweep runner's report (not ported yet)
+    sweep_report: object | None = None  # SweepReport when run via ``sweep=``
 
     @property
     def n_points(self) -> int:
@@ -597,6 +596,47 @@ class LayoutSpaceEval:
         return np.asarray(self.j_per_mac_robust) * float(self.macs_per_token)
 
 
+def _price(tables, a_h, a_v, h_lanes, v_lanes, w, act_mult, obj_args, *,
+           cfg: LayoutPowerConfig, rep_idx: tuple, gss_iters: int, device):
+    """One ``_coeff_eval_core`` run on ``device`` (None: numpy) over the
+    lowered ``tables`` (``DEVICE_FIELDS``) and the activities; every output
+    comes back as a float64 numpy array.  The unchunked evaluator and the
+    sweep runner's device rungs share it."""
+    nb, nn = _search_iters(gss_iters)
+    scalars = (
+        cfg.vdd,
+        cfg.freq_hz,
+        cfg.wire_cap_f_per_um,
+        cfg.repeater_spacing_um,
+        cfg.repeater_overhead,
+        cfg.preload_duty * cfg.preload_activity,
+        cfg.drain_duty * cfg.drain_activity,
+        cfg.clock_toggles_per_cycle,
+    )
+    out = _run_core(
+        functools.partial(_coeff_eval_core, rep_idx=rep_idx, nb=nb, nn=nn),
+        (*(tables[k] for k in DEVICE_FIELDS), a_h, a_v, h_lanes, v_lanes, w, *scalars,
+         act_mult, *obj_args),
+        device,
+    )
+    return {k: np.asarray(v, float) for k, v in out.items()}
+
+
+def _mask_infeasible(out: dict, feasible: np.ndarray, utilization) -> dict:
+    """Price infeasible (layout, point) cells ``inf`` and attach the
+    objective's utilization, a pure pass-through of the host partition
+    table (``None`` without an objective)."""
+    bad = ~feasible
+    for key in ("bus_power_robust", "overhead_w", "wirelength_um"):
+        out[key] = np.where(bad, np.inf, out[key])
+    out["bus_power_opt"] = np.where(bad[None], np.inf, out["bus_power_opt"])
+    if utilization is not None:
+        out["j_per_mac"] = np.where(bad[None], np.inf, out["j_per_mac"])
+        out["j_per_mac_robust"] = np.where(bad, np.inf, out["j_per_mac_robust"])
+        out["utilization"] = utilization
+    return out
+
+
 def evaluate_layout_space(
     grid: DesignGrid,
     a_h,
@@ -634,8 +674,11 @@ def evaluate_layout_space(
     ``engine`` is one of ``repro_torch.core.design_space.ENGINES``: float64
     tensors on the current CUDA device (``"cuda"``, the default; the lowered
     tables are copied there once and kept), on the CPU (``"torch"``), or
-    numpy (``"numpy"``).  ``sweep`` (the reference's chunked, checkpointed
-    runner) is not ported yet and raises ``NotImplementedError``.
+    numpy (``"numpy"``).
+
+    ``sweep`` (a ``repro_torch.core.sweep.SweepConfig``) routes evaluation
+    through the chunked, checkpointed, guard-validated runner (see
+    ``evaluate_design_space``); the returned eval carries ``sweep_report``.
     """
     p = grid.n_points
     a_h, a_v = _norm_activities(a_h, a_v, p)
@@ -669,23 +712,21 @@ def evaluate_layout_space(
             raise ValueError("objective.static_w must be (workloads, points)")
     device = _engine_device(engine)
     if sweep is not None:
-        _sweep_not_ported()
+        from repro_torch.core.sweep import run_layout_sweep
+
+        out, report = run_layout_sweep(
+            grid, a_h, a_v, w, layouts=layout_names, h_lanes=h_lanes,
+            v_lanes=v_lanes, cfg=cfg, gss_iters=gss_iters, engine=engine,
+            sweep=sweep, objective=objective,
+        )
+        return LayoutSpaceEval(
+            grid=grid, layouts=layout_names, sweep_report=report, **out
+        )
     coeffs = lower_layout_coeffs(
         grid,
         layout_names,
         max_envelope_aspect=cfg.max_envelope_aspect,
         repeater_spacing_um=cfg.repeater_spacing_um,
-    )
-    nb, nn = _search_iters(gss_iters)
-    scalars = (
-        cfg.vdd,
-        cfg.freq_hz,
-        cfg.wire_cap_f_per_um,
-        cfg.repeater_spacing_um,
-        cfg.repeater_overhead,
-        cfg.preload_duty * cfg.preload_activity,
-        cfg.drain_duty * cfg.drain_activity,
-        cfg.clock_toggles_per_cycle,
     )
     coding = lower_coding_multipliers(grid, a_v) if has_bi else None
     # The lowered tables on the engine: the host float64 arrays for numpy,
@@ -695,6 +736,7 @@ def evaluate_layout_space(
     if coding is not None:
         act_mult = (coding.host if device is None else coding.device(device))["act_mult"]
     obj_args = (None,) * 6
+    utilization = None
     if objective is not None:
         part = part_host if device is None else objective.partition.device(device)
         rows_arr = np.asarray(grid.rows, float)
@@ -706,23 +748,14 @@ def evaluate_layout_space(
             rows_arr * np.asarray(grid.cols, float),
             static_w,
         )
+        utilization = part_host["utilization"]
     lanes = [None if x is None else np.asarray(x, float) for x in (h_lanes, v_lanes)]
-    out = _run_core(
-        functools.partial(_coeff_eval_core, rep_idx=coeffs.rep_idx, nb=nb, nn=nn),
-        (*(tables[k] for k in DEVICE_FIELDS), a_h, a_v, *lanes, w, *scalars, act_mult,
-         *obj_args),
-        device,
+    out = _price(
+        tables, a_h, a_v, *lanes, w, act_mult, obj_args,
+        cfg=cfg, rep_idx=coeffs.rep_idx, gss_iters=gss_iters, device=device,
     )
-    out = {k: np.asarray(v, float) for k, v in out.items()}
     feasible = coeffs.host["feasible"]
-    bad = ~feasible
-    for key in ("bus_power_robust", "overhead_w", "wirelength_um"):
-        out[key] = np.where(bad, np.inf, out[key])
-    out["bus_power_opt"] = np.where(bad[None], np.inf, out["bus_power_opt"])
-    if objective is not None:
-        out["j_per_mac"] = np.where(bad[None], np.inf, out["j_per_mac"])
-        out["j_per_mac_robust"] = np.where(bad, np.inf, out["j_per_mac_robust"])
-        out["utilization"] = part_host["utilization"]
+    out = _mask_infeasible(out, feasible, utilization)
     return LayoutSpaceEval(
         grid=grid,
         layouts=layout_names,

@@ -17,7 +17,7 @@ plants seeded, reproducible faults at the pipeline's real failure sites:
                       covers the profile store AND the sweep chunk store;
   * ``nan``         — overwrite one element of an evaluator result array
                       with NaN/Inf (drives the sweep guard rails + the
-                      jit -> eager -> scalar evaluation ladder);
+                      engine -> numpy -> scalar evaluation ladder);
   * ``abort``       — raise ``InjectedAbortError`` (a ``BaseException``, so
                       recovery machinery cannot swallow it) at a sweep
                       commit boundary — models ``kill -9`` mid-sweep for

@@ -149,7 +149,7 @@ class GuardViolationError(EvaluationError):
     value, non-positive power, coded activity above raw, saving above 1,
     argmin outside the aspect envelope...).  ``violations`` lists every
     failed guard.  Recoverable by re-evaluating the chunk down the
-    jit -> eager -> scalar ladder; raised only when the last rung still
+    engine -> numpy -> scalar ladder; raised only when the last rung still
     violates (a silently wrong cell must never reach the Pareto front)."""
 
     kind = "guard-violation"
@@ -338,29 +338,34 @@ def degradation_ladder(engine: str = "auto") -> tuple[str, ...]:
     raise ContractViolationError(f"unknown engine {engine!r}; know {LADDER_RUNGS[:2]}")
 
 
-# Per-CHUNK evaluation rungs for the design-space/layout sweep runner (it
-# comes with a later slice of the port), most- to least-accelerated.
-# "jit" is the batched float32 program, "eager" the identical code in
-# float64 numpy, "scalar" a per-point float64 evaluation (the oracle rung:
-# no batching, no fusion, nothing shared across points that could smear one
-# bad cell into its neighbors).  Unlike the profiling ladder the rungs are
-# NOT bit-identical (float32 vs float64 rounding) — they agree to the
+# Per-CHUNK evaluation rungs of the design-space/layout sweep runner
+# (``core.sweep``), most- to least-accelerated.  The first rung is the
+# evaluator's engine: "cuda" (the float64 program on the card) or "torch"
+# (the same program on the CPU); "numpy" is the identical code in float64
+# numpy (the reference's eager rung), "scalar" a per-point numpy evaluation
+# (the oracle rung: no batching, no fusion, nothing shared across points
+# that could smear one bad cell into its neighbors).  Every rung computes
+# float64, but the rungs are NOT bit-identical (torch's and numpy's
+# elementwise functions differ in the last bits) — they agree to the
 # engines' cross-checked tolerances, and a chunk recomputed on a lower rung
 # is recorded in the sweep report.
-EVAL_LADDER_RUNGS: tuple[str, ...] = ("jit", "eager", "scalar")
+EVAL_LADDER_RUNGS: tuple[str, ...] = ("cuda", "torch", "numpy", "scalar")
 
 
-def evaluation_ladder(start: str = "jit") -> tuple[str, ...]:
+def evaluation_ladder(start: str = "cuda") -> tuple[str, ...]:
     """The rung sequence for a sweep chunk starting at ``start``.
 
-    ``start="eager"`` (``use_jit=False``) begins below the jit rung.  The
-    scalar rung is always last — it exercises none of the machinery
-    (batching, jit, broadcasting) that the guards exist to distrust, so it
-    is the rung of last resort."""
+    A device engine (``"cuda"`` or ``"torch"``) steps down to ``"numpy"``
+    and then ``"scalar"``; ``start="numpy"`` begins below both.  The scalar
+    rung is always last — it exercises none of the machinery (batching,
+    devices, broadcasting) that the guards exist to distrust, so it is the
+    rung of last resort."""
     if start not in EVAL_LADDER_RUNGS:
         raise ContractViolationError(
             f"unknown evaluation rung {start!r}; know {EVAL_LADDER_RUNGS}"
         )
+    if start in ("cuda", "torch"):
+        return (start, "numpy", "scalar")
     return EVAL_LADDER_RUNGS[EVAL_LADDER_RUNGS.index(start):]
 
 

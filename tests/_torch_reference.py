@@ -23,10 +23,19 @@ and, for the design-space example grid (``DESIGN_SPACE``, 40 points over
 the first three Table-I layers), the (layer, point) activities of
 ``measured_design_activities`` and the same ``BatchStats`` fields.
 
-    PYTHONPATH=src python tests/_torch_reference.py    # rewrites the file
+It also builds ``src/repro_torch/data/serving_reference.json``: the JAX
+package's serving co-design ``codesign("mixtral_8x7b", "decode_heavy")``
+(``SERVING``: the default design space, layout families and profiling
+clip) on the CPU, with its batched Pallas path (interpret mode) for the
+activities and its float64 ``use_jit=False`` path for the objective.  It
+records the job set, the measured (GEMM, point) activities and the
+scheduler's statistics, the objective's ``j_per_mac``, ``j_per_mac_robust``
+and ``j_per_token_robust``, and the best and per-regime cells.
 
-``tests/test_torch_paper_validation.py`` rebuilds it and asserts that it
-equals the committed file.
+    PYTHONPATH=src python tests/_torch_reference.py    # rewrites both files
+
+``tests/test_torch_paper_validation.py`` and ``tests/test_torch_serving.py``
+rebuild them and assert that each equals the committed file.
 """
 
 from __future__ import annotations
@@ -35,9 +44,11 @@ import dataclasses
 import json
 from pathlib import Path
 
-REFERENCE_PATH = (
-    Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "data" / "table1_reference.json"
-)
+DATA = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "data"
+REFERENCE_PATH = DATA / "table1_reference.json"
+SERVING_REFERENCE_PATH = DATA / "serving_reference.json"
+SERVING = {"arch": "mixtral_8x7b", "traffic": "decode_heavy"}
+SERVING_CLIP = (128, 512, 256)  # codesign()'s default profiling clip
 ROWS = COLS = 32
 BITS = 16
 BATCH_STATS_FIELDS = (
@@ -152,11 +163,75 @@ def build_reference() -> dict:
     }
 
 
+def build_serving_reference() -> dict:
+    """The serving co-design document, computed with the JAX package on the
+    CPU.  Infeasible cells' J/op is +inf (JSON ``Infinity``)."""
+    import numpy as np
+
+    from repro.configs.registry import get_arch
+    from repro.core.objective import evaluate_fleet_objective
+    from repro.core.workloads import measured_design_gemm_activities
+    from repro.serving import (
+        DEFAULT_FAMILIES,
+        DEFAULT_SPACE,
+        CodesignResult,
+        get_preset,
+        weighted_gemms,
+    )
+
+    # codesign()'s own steps, with the scheduler's statistics kept.
+    js = weighted_gemms(get_arch(SERVING["arch"]), get_preset(SERVING["traffic"]))
+    grid = DEFAULT_SPACE.expand()
+    a_h, a_v, stats = measured_design_gemm_activities(
+        grid, js.gemms, densities=js.densities, clip=SERVING_CLIP, backend="pallas",
+        use_cache=False, return_stats=True,
+    )
+    ev = evaluate_fleet_objective(
+        grid, a_h, a_v, js.gemms, layouts=DEFAULT_FAMILIES, weights=js.weights,
+        use_jit=False, macs_per_token=js.macs_per_token,
+    )
+    res = CodesignResult(arch=js.arch, traffic=js.traffic, jobset=js, grid=grid, eval=ev,
+                         layouts=DEFAULT_FAMILIES)
+    space = {key: list(getattr(DEFAULT_SPACE, key)) for key in (
+        "rows", "cols", "input_bits", "dataflows", "bus_invert", "pe_area_um2")}
+    return {
+        **SERVING,
+        "space": space,
+        "layouts": list(DEFAULT_FAMILIES),
+        "clip": list(SERVING_CLIP),
+        "jobset": {
+            "gemms": [[g.name, g.m, g.k, g.n] for g in js.gemms],
+            "weights": js.weights.tolist(),
+            "mac_rate": js.mac_rate.tolist(),
+            "regimes": list(js.regimes),
+            "densities": list(js.densities),
+            "tokens_per_s": js.tokens_per_s,
+            "macs_per_token": js.macs_per_token,
+        },
+        "a_h": a_h.tolist(),
+        "a_v": a_v.tolist(),
+        "batch_stats": {key: getattr(stats, key) for key in BATCH_STATS_FIELDS},
+        "j_per_mac": np.asarray(res.eval.j_per_mac).tolist(),
+        "j_per_mac_robust": np.asarray(res.eval.j_per_mac_robust).tolist(),
+        "j_per_token_robust": np.asarray(res.eval.j_per_token_robust).tolist(),
+        "best_cell": list(res.best_cell),
+        "regime_cells": {r: list(res.regime_cell(r)) for r in ("decode", "prefill")},
+    }
+
+
 def dumps(doc: dict) -> str:
     return json.dumps(doc, indent=1, sort_keys=True) + "\n"
 
 
+def dumps_compact(doc: dict) -> str:
+    """One top-level key a line (the serving file's arrays are large)."""
+    lines = [f" {json.dumps(k)}: {json.dumps(doc[k], sort_keys=True)}" for k in sorted(doc)]
+    return "{\n" + ",\n".join(lines) + "\n}\n"
+
+
 if __name__ == "__main__":
-    REFERENCE_PATH.parent.mkdir(parents=True, exist_ok=True)
+    DATA.mkdir(parents=True, exist_ok=True)
     REFERENCE_PATH.write_text(dumps(build_reference()))
     print(f"wrote {REFERENCE_PATH}")
+    SERVING_REFERENCE_PATH.write_text(dumps_compact(build_serving_reference()))
+    print(f"wrote {SERVING_REFERENCE_PATH}")

@@ -876,3 +876,83 @@ def test_layout_evaluator_cuda_matches_numpy(card, variant):
     want = evaluate_layout_space(grid, a_h, a_v, engine="numpy", **kw)
     _assert_engines_agree(got, want, fields)
     assert np.array_equal(got.best_layout, want.best_layout)
+
+
+def _same_bits(a, b) -> bool:
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+@pytest.mark.parametrize("kind", ["design", "layout", "objective"])
+def test_sweep_on_the_card(card, kind, tmp_path):
+    """The checkpointed sweep on the card: every chunk on the "cuda" rung;
+    chunked equals unchunked bit for bit (the sums over the workload and
+    class axes are folds, the same at every point); max_chunks interrupts
+    and resume equals an uninterrupted run bit for bit; and a poisoned
+    chunk walks to "numpy", is recorded, and agrees with numpy within
+    1e-10."""
+    from repro_torch.core.design_space import DesignSpace, evaluate_design_space
+    from repro_torch.core.objective import evaluate_fleet_objective
+    from repro_torch.core.sweep import SweepConfig, SweepInterrupted
+    from repro_torch.core.workloads import Gemm
+    from repro_torch.layout import evaluate_layout_space
+
+    grid = DesignSpace(rows=(8, 16), cols=(8, 16, 32), input_bits=(8,), dataflows=("WS", "OS"),
+                       bus_invert=(False, True) if kind != "layout" else (False,)).expand()
+    rng = np.random.default_rng(0)
+    a_h = rng.uniform(0.1, 0.4, (3, grid.n_points))
+    a_v = rng.uniform(0.2, 0.6, (3, grid.n_points))
+    layouts = ("uniform", "serpentine2", "pods2x2")
+    if kind == "design":
+        run = lambda **kw: evaluate_design_space(grid, a_h, a_v, **kw)
+        fields = ("a_v_eff", "aspect_opt", "bus_power_opt", "bus_power_robust", "total_saving")
+    elif kind == "layout":
+        run = lambda **kw: evaluate_layout_space(grid, a_h, a_v, layouts=layouts, **kw)
+        fields = ("aspect_opt", "bus_power_opt", "bus_power_robust", "overhead_w", "wirelength_um")
+    else:
+        gemms = [Gemm("a", 64, 128, 64), Gemm("b", 100, 20, 30), Gemm("c", 512, 512, 64)]
+        run = lambda **kw: evaluate_fleet_objective(grid, a_h, a_v, gemms, layouts=layouts, **kw)
+        fields = ("bus_power_robust", "overhead_w", "j_per_mac", "j_per_mac_robust")
+    plain = run(engine="cuda")
+    swept = run(engine="cuda", sweep=SweepConfig(chunk_size=7))
+    chunks = -(-grid.n_points // 7)
+    assert swept.sweep_report.rung_counts() == {"cuda": chunks}
+    for f in fields:
+        assert _same_bits(getattr(plain, f), getattr(swept, f)), f
+    store = tmp_path / "chunks"
+    with pytest.raises(SweepInterrupted):
+        run(engine="cuda", sweep=SweepConfig(chunk_size=7, store=store, max_chunks=1))
+    resumed = run(engine="cuda", sweep=SweepConfig(chunk_size=7, store=store))
+    assert resumed.sweep_report.chunks_resumed == 1
+    for f in fields:
+        assert _same_bits(getattr(swept, f), getattr(resumed, f)), f
+    with faults.injected([faults.FaultSpec("nan", match=f"cuda:{fields[-1]}|chunk1",
+                                           max_fires=1)]):
+        poisoned = run(engine="cuda", sweep=SweepConfig(chunk_size=7))
+    rep = poisoned.sweep_report
+    assert rep.rung_counts() == {"cuda": chunks - 1, "numpy": 1}
+    assert rep.failures.actions() == {"degraded:numpy": 1}
+    _assert_engines_agree(poisoned, run(engine="numpy"), fields)
+
+
+def test_codesign_on_the_card(card):
+    """Mixtral-8x7B under decode_heavy on the card (K2 and K3, then the
+    objective in float64) against the JAX package's reference file."""
+    import json
+    from pathlib import Path
+
+    from repro_torch.serving import codesign
+
+    path = Path(__file__).resolve().parents[1] / "src/repro_torch/data/serving_reference.json"
+    ref = json.loads(path.read_text())
+    before = (K.ws_task_toggles.launches, K.strip_toggles.launches)
+    res = codesign(ref["arch"], ref["traffic"], backend="auto", use_cache=False)
+    assert K.ws_task_toggles.launches > before[0] and K.strip_toggles.launches > before[1]
+    assert [[g.name, g.m, g.k, g.n] for g in res.jobset.gemms] == ref["jobset"]["gemms"]
+    for f in ("j_per_mac", "j_per_mac_robust", "j_per_token_robust"):
+        g, w = np.asarray(getattr(res.eval, f)), np.asarray(ref[f], float)
+        ok = np.isfinite(w)
+        assert (np.isfinite(g) == ok).all(), f
+        np.testing.assert_allclose(g[ok], w[ok], rtol=1e-10, atol=0, err_msg=f)
+    assert list(res.best_cell) == ref["best_cell"]
+    assert {r: list(res.regime_cell(r)) for r in ("decode", "prefill")} == ref["regime_cells"]

@@ -39,6 +39,7 @@ from repro_torch.core.floorplan import (
     optimal_aspect_power,
 )
 from repro_torch.core.optimize import _power_shape, bus_invert_activity, max_regret
+from repro_torch.core.sweep import SweepConfig
 from repro_torch.core.switching import clear_profile_cache
 from repro_torch.kernels._engine import CudaUnavailableError
 
@@ -269,8 +270,13 @@ def test_sweep_matches_scalar_bus_power_and_reference(engine):
 def test_engines_and_sweep_contracts(monkeypatch):
     with pytest.raises(ValueError, match="unknown engine"):
         evaluate_design_space(GRID, A_H, A_V, engine="jax")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        evaluate_design_space(GRID, A_H, A_V, engine="numpy", sweep=object())
+    plain = evaluate_design_space(GRID, A_H, A_V, engine="numpy")
+    swept = evaluate_design_space(GRID, A_H, A_V, engine="numpy",
+                                  sweep=SweepConfig(chunk_size=GRID.n_points // 3))
+    assert plain.sweep_report is None and swept.sweep_report.chunks_total == 4
+    assert swept.sweep_report.rung_counts() == {"numpy": 4}
+    for field in EVAL_FIELDS:
+        assert np.array_equal(getattr(plain, field), getattr(swept, field)), field
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(CudaUnavailableError):
         evaluate_design_space(GRID, A_H, A_V)

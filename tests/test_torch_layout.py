@@ -36,6 +36,7 @@ from repro_torch.core.floorplan import (
     wirelength_total,
     wirelength_total_arr,
 )
+from repro_torch.core.sweep import SweepConfig
 from repro_torch.core.workloads import Gemm, design_pod_partition, partition_gemm
 from repro_torch.kernels._engine import CudaUnavailableError
 from repro_torch.layout import (
@@ -462,8 +463,11 @@ def test_evaluator_engine_and_sweep_contracts(monkeypatch):
     grid = DesignSpace(rows=(8,), cols=(16,), input_bits=(8,)).expand()
     with pytest.raises(ValueError, match="unknown engine"):
         evaluate_layout_space(grid, 0.2, 0.4, engine="xla")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        evaluate_layout_space(grid, 0.2, 0.4, engine="torch", sweep=object())
+    plain = evaluate_layout_space(grid, 0.2, 0.4, engine="torch")
+    swept = evaluate_layout_space(grid, 0.2, 0.4, engine="torch", sweep=SweepConfig(chunk_size=1))
+    assert plain.sweep_report is None and swept.sweep_report.rung_counts() == {"torch": 1}
+    for field in EVAL_FIELDS + ("feasible", "aspect_lo", "aspect_hi"):
+        assert np.array_equal(getattr(plain, field), getattr(swept, field)), field
     with pytest.raises(ValueError, match="h_lanes"):
         evaluate_layout_space(grid, 0.2, 0.4, engine="torch", h_lanes=np.zeros((2, 1, 64)))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

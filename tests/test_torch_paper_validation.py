@@ -2,8 +2,8 @@
 
 Every profiling test passes ``backend="torch"`` (the plain PyTorch versions
 of the CUDA kernels) and compares its profiles with the JAX package's on the
-same seeded operands.  The LLM GEMM-extraction test waits for the port of
-``gemms_for_arch`` (the serving slice).
+same seeded operands; the LLM GEMM extraction (``gemms_for_arch``) is held
+to the reference's for all ten architectures.
 
 It also checks the port's Table-I main path at full size against
 ``src/repro_torch/data/table1_reference.json`` and that the file is what the
@@ -33,6 +33,7 @@ from repro_torch.core.switching import combine_profiles
 from repro_torch.core.workloads import (
     RESNET50_TABLE1,
     conv_to_gemm,
+    gemms_for_arch,
     profile_conv_layer,
     profile_network,
     synth_activations,
@@ -80,6 +81,27 @@ def test_table1_gemm_lowering():
     assert [dataclasses.astuple(layer) for layer in RESNET50_TABLE1] == [
         dataclasses.astuple(layer) for layer in ref_workloads.RESNET50_TABLE1
     ]
+
+
+def test_llm_gemm_extraction():
+    """Beyond-paper: the SA analysis consumes LLM layer GEMMs too."""
+    import repro.configs.registry as ref_registry
+    from repro_torch.configs.registry import ARCH_IDS, get_arch
+
+    gemms = gemms_for_arch(get_arch("yi_6b"), seq_len=128, batch=1)
+    names = {g.name for g in gemms}
+    assert {"q_proj", "k_proj", "o_proj", "ffn_up", "lm_head"} <= names
+    q = next(g for g in gemms if g.name == "q_proj")
+    assert (q.m, q.k, q.n) == (128, 4096, 4096)
+    moe = gemms_for_arch(get_arch("mixtral_8x7b"), seq_len=128, batch=1)
+    eu = next(g for g in moe if g.name == "expert_up")
+    assert eu.m == 128 * 2  # top-2 active tokens
+    for arch in ARCH_IDS:
+        for seq_len, batch in ((128, 1), (1, 64)):
+            got = gemms_for_arch(get_arch(arch), seq_len=seq_len, batch=batch)
+            want = ref_workloads.gemms_for_arch(ref_registry.get_arch(arch), seq_len, batch)
+            assert [dataclasses.astuple(g) for g in got] == [
+                dataclasses.astuple(g) for g in want], arch
 
 
 def test_simulated_activities_in_paper_band():

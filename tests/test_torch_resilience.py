@@ -197,7 +197,16 @@ def test_degradation_ladder_rungs():
     assert tuple(RUNG[r] for r in ref_resilience.LADDER_RUNGS) == LADDER_RUNGS
     with pytest.raises(ContractViolationError, match="unknown engine"):
         degradation_ladder("xla")
-    assert evaluation_ladder("eager") == ref_resilience.evaluation_ladder("eager")
+    # The sweep ladder's rungs are named by engine: the reference's eager
+    # rung is the port's numpy rung, its jit rung the evaluator's engine.
+    eval_rung = {"jit": "torch", "eager": "numpy", "scalar": "scalar"}
+    assert evaluation_ladder("numpy") == tuple(
+        eval_rung[r] for r in ref_resilience.evaluation_ladder("eager"))
+    assert evaluation_ladder("torch") == tuple(
+        eval_rung[r] for r in ref_resilience.evaluation_ladder("jit"))
+    assert evaluation_ladder() == evaluation_ladder("cuda") == ("cuda", "numpy", "scalar")
+    with pytest.raises(ContractViolationError, match="unknown evaluation rung"):
+        evaluation_ladder("jit")
 
 
 def test_failure_report_accounting():
