@@ -139,11 +139,30 @@ Phases (any mismatch exits non-zero; nothing is caught):
 5. Trace each main path once more with ``torch.profiler`` and print the
    device's busy share and the device time of each kernel and copy; the
    design-space path too.
+6. The model path (``model_path_check``), last, with the same count
+   discipline: the ten reduced architectures in float32, parameters
+   from the port's seeded numpy recipe, ``forward`` (K7 f32 where they
+   attend) and stepwise ``decode_step`` at B = 2, S = 12 and ``forward`` at
+   B = 1, S = 128, each within rtol = atol = 2e-3 of the JAX package's
+   logits in ``src/repro_torch/data/models_reference.json``, and the K7
+   route within 1e-4 of the torch route; then Qwen3-8B at its full
+   published widths in bf16 (16.4 GB of weights drawn on the card):
+   ``forward(last_only=True)`` at B = 4, S = 2048 on the K7 route (36 K7
+   launches; of three ``torch.profiler`` traces of it, the one holding
+   the most device records holds 36 K7 records) against the torch route
+   within 3e-2 relative L2, then ``launch.serve.generate`` at
+   B = 4, prompt 64, gen 16, whose ``prefill_with_cache`` logits lie
+   within 3e-2 relative L2 of the forward's last position and whose tokens
+   the prefill and decode steps give back; prints the forward, prefill and
+   decode walls, tokens/s, the device's busy share in traces of the
+   forward and the decode steps, peak device memory, and K7's time at the
+   full-width shape beside SDPA ``is_causal`` and its bound.
 
-The last lines are the ``kernels`` JSON object (every kernel; K6's and
-K7's "tf32" routes and K7's prep kernel with no launch on the main path;
-K2's and K3's launches on the design-space and serving paths beside their
-main path's), the
+The last lines are the ``kernels`` JSON object (every kernel; K6's
+"tf32" route with no launch on a main path; K7's f32 route and its prep
+kernel with their launches on the model path, their first; K2's and K3's
+launches on the design-space and serving paths and K7's on the model path
+beside their first main path's; K7 bf16's time at the model's shape), the
 ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when no
 CUDA device is available or when the repository's ``src/`` is missing.
@@ -151,6 +170,7 @@ CUDA device is available or when the repository's ``src/`` is missing.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import shutil
@@ -186,7 +206,8 @@ KERNELS = (
     "ws_gemm_tc", "gemm_operand_planes", "flash_attention_tc",
 )
 # The f32 routes (K6 also bf16 with K or N not a multiple of 8) and K7's
-# prep: timed at the main paths' shapes, launched on none of them.
+# prep: timed at the main paths' shapes, launched on none of the profiling
+# and kernel-library paths (K7's on the model path, phase 6).
 OFF_PATH = ("ws_gemm_tf32", "flash_attention_tf32", "attention_operand_planes")
 # The tensor-core kernels and the SASS instructions each must hold (TF32:
 # HGMMA lines over tf32 operands, K6's and K7's "tf32" routes).
@@ -599,6 +620,258 @@ def serving_path_check(*, smi, reset_counts, read_counts, host_timed, stacked, c
           flush=True)
     return {"launches": {k: counts[k] for k in ("ws_task_toggles", "strip_toggles")},
             "wall_ms": wall_ms}
+
+
+# The model path (phase 6): the ten reduced archs in float32 against the
+# JAX package's logits (src/repro_torch/data/models_reference.json, at the
+# reference's decode-against-forward tolerance), then Qwen3-8B at its full
+# published widths (src/repro/configs/qwen3_8b.py: 36 layers, d 4096, GQA
+# 32/8, head_dim 128, qk-norm, vocab 151936) in bf16: a forward at B x S,
+# then serving's generate.  K7 against the torch route: float32 within
+# MODEL_ROUTE_TOL (rtol and atol; TF32 three-product attention against an
+# f32 softmax), bf16 within MODEL_BF16_REL in relative L2 (three times the
+# bf16 rendering's own distance from float32 at depth 36, 1.1e-2 on the
+# CPU); prefill_with_cache against forward's last position likewise.
+MODEL_FILE_TOL = 2e-3
+MODEL_ROUTE_TOL = 1e-4
+MODEL_BF16_REL = 3e-2
+MODEL_ARCH = "qwen3_8b"
+MODEL_BATCH, MODEL_SEQ = 4, 2048
+SERVE_PROMPT, SERVE_GEN = 64, 16
+
+
+def model_path_check(*, dev, smi, reset_counts, read_counts, host_timed, median_ms,
+                     bound_ms) -> dict:
+    """Phase 6: the model stack on the card through its entry points
+    (``models.model.forward``, ``decode_step``, ``launch.serve.generate``).
+    Returns the path's K7 launches and K7's time at the full-width shape."""
+    import base64
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.registry import ARCH_IDS, get_arch
+    from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as M
+
+    ref = json.loads((ROOT / "src" / "repro_torch" / "data" / "models_reference.json").read_text())
+
+    def logits_of(doc):
+        return torch.from_numpy(np.frombuffer(base64.b64decode(doc["f32_base64"]), dtype="<f4")
+                                .reshape(doc["shape"]).copy())
+
+    def rel_l2(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    def reduced_case(arch):
+        doc = ref["archs"][arch]
+        cfg = get_arch(arch).reduced()
+        cfg = dataclasses.replace(cfg, capacity_factor=doc["capacity_factor"])
+        params = M.from_reference_params(cfg, M.seeded_numpy_params(cfg, ref["seed"]), device=dev)
+        toks = torch.tensor(doc["tokens"], dtype=torch.int32, device=dev)
+        long_toks = torch.tensor(doc["long_tokens"], dtype=torch.int32, device=dev)
+        return doc, cfg, params, toks, long_toks
+
+    def reduced_run(cfg, params, toks, long_toks):
+        fwd, _ = M.forward(cfg, params, toks, last_only=True)
+        long_fwd, _ = M.forward(cfg, params, long_toks, last_only=True)
+        cache, _ = M.init_cache(cfg, toks.shape[0], toks.shape[1], device=dev)
+        for t in range(toks.shape[1]):
+            dec, cache = M.decode_step(cfg, params, cache, toks[:, t:t + 1], t)
+        return {"forward": fwd, "long_forward": long_fwd, "decode": dec}
+
+    cases = {arch: reduced_case(arch) for arch in ARCH_IDS}
+    cfg = get_arch(MODEL_ARCH).with_dtypes("bfloat16", "bfloat16")
+    t0 = time.perf_counter()
+    params, _ = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (MODEL_BATCH, MODEL_SEQ), generator=gen, device=dev,
+                           dtype=torch.int32)
+    prompt = tokens[:, :SERVE_PROMPT].contiguous()
+
+    # 1. The path, counted: the reduced archs on the default route (K7 f32
+    # where they attend), then Qwen3-8B's forward (K7 bf16) and generate.
+    reset_counts()
+    outs = {arch: reduced_run(*case[1:]) for arch, case in cases.items()}
+    torch.cuda.reset_peak_memory_stats()
+    (full, _), forward_ms = host_timed(lambda: M.forward(cfg, params, tokens, last_only=True))
+    served, generate_ms = host_timed(lambda: generate(cfg, params, prompt, SERVE_GEN))
+    peak = torch.cuda.max_memory_allocated()
+    counts = read_counts()
+    attn_layers = {arch: c[1].n_stages * sum(m == "attn" for m, _ in c[1].stage_pattern)
+                   for arch, c in cases.items()}
+    want_tf32 = 2 * sum(attn_layers.values())
+    check(counts["flash_attention_tf32"] == counts["attention_operand_planes"] == want_tf32,
+          f"model path: K7 f32 launched {counts['flash_attention_tf32']} times (prep "
+          f"{counts['attention_operand_planes']}), want {want_tf32} (two forwards per reduced arch)")
+    check(counts["flash_attention_tc"] == cfg.n_layers,
+          f"model path: K7 bf16 launched {counts['flash_attention_tc']} times, want {cfg.n_layers}")
+    others = {k: v for k, v in counts.items() if v and not k.startswith(("flash_attention",
+                                                                          "attention_operand"))}
+    check(not others, f"model path launched other kernels: {others}")
+
+    # 2. The reduced archs against the JAX package's logits, and against the
+    # torch route on the same card.
+    worst = {}
+    for arch, (doc, cfg_r, params_r, toks, long_toks) in cases.items():
+        for key, got in outs[arch].items():
+            want = logits_of(doc[key]).to(dev)
+            check(tuple(got.shape) == tuple(want.shape) and bool(torch.isfinite(got).all()),
+                  f"{arch} {key}: shape {tuple(got.shape)} or non-finite logits")
+            err = (got - want).abs()
+            check(bool((err <= MODEL_FILE_TOL + MODEL_FILE_TOL * want.abs()).all()),
+                  f"{arch} {key}: max |card - reference| {err.max().item()!r} beyond rtol = atol = "
+                  f"{MODEL_FILE_TOL}")
+            worst[arch, key] = err.max().item()
+        if attn_layers[arch]:
+            plain, _ = M.forward(cfg_r, params_r, long_toks, last_only=True, attention="torch")
+            err = (outs[arch]["long_forward"] - plain).abs()
+            check(bool((err <= MODEL_ROUTE_TOL + MODEL_ROUTE_TOL * plain.abs()).all()),
+                  f"{arch}: K7 route against torch route {err.max().item()!r} beyond "
+                  f"{MODEL_ROUTE_TOL}")
+            worst[arch, "route"] = err.max().item()
+    print(f"  model path, reduced archs (float32, K7 tf32 on {sum(map(bool, attn_layers.values()))} "
+          f"attention archs): max |card - JAX reference| by arch (forward, decode, S=128 forward; "
+          f"within {MODEL_FILE_TOL}) and |K7 route - torch route| (within {MODEL_ROUTE_TOL}): "
+          + "; ".join(f"{arch} {worst[arch, 'forward']:.2e} {worst[arch, 'decode']:.2e} "
+                      f"{worst[arch, 'long_forward']:.2e}"
+                      + (f" route {worst[arch, 'route']:.2e}" if (arch, 'route') in worst else "")
+                      for arch in cases), flush=True)
+    del cases, outs
+
+    # 3. Qwen3-8B at full width: the torch route, prefill_with_cache and the
+    # generated tokens.
+    check(tuple(full.shape) == (MODEL_BATCH, cfg.vocab_size) and full.dtype == torch.bfloat16
+          and bool(torch.isfinite(full).all()), f"{MODEL_ARCH}: forward logits {full.shape} "
+          f"{full.dtype} or non-finite")
+    _, warm_ms = host_timed(lambda: M.forward(cfg, params, tokens, last_only=True))
+    (plain, _), plain_ms = host_timed(lambda: M.forward(cfg, params, tokens, last_only=True,
+                                                        attention="torch"))
+    route_rel = rel_l2(full, plain)
+    check(route_rel <= MODEL_BF16_REL, f"{MODEL_ARCH}: K7 route against torch route, relative "
+          f"L2 {route_rel!r} beyond {MODEL_BF16_REL}")
+    argmax_agree = (full.argmax(-1) == plain.argmax(-1)).float().mean().item()
+    # prefill as generate runs it (cache for prompt + gen), then the gen
+    # decode steps along the generated tokens, timed: each step's argmax
+    # must be generate's next token
+    (pre_logits, cache), prefill_ms = host_timed(lambda: M.prefill_with_cache(
+        cfg, params, prompt, cache_seq_len=SERVE_PROMPT + SERVE_GEN))
+    short, _ = M.forward(cfg, params, prompt, last_only=True)
+    prefill_rel = rel_l2(pre_logits, short)
+    check(prefill_rel <= MODEL_BF16_REL, f"{MODEL_ARCH}: prefill_with_cache against forward's "
+          f"last position, relative L2 {prefill_rel!r} beyond {MODEL_BF16_REL}")
+    check(tuple(served.shape) == (MODEL_BATCH, SERVE_GEN) and served.dtype == torch.int32
+          and bool(((served >= 0) & (served < cfg.vocab_size)).all()),
+          f"{MODEL_ARCH}: generated tokens {tuple(served.shape)} {served.dtype} out of range")
+
+    def decode_steps():
+        return [M.decode_step(cfg, params, cache, served[:, i:i + 1], SERVE_PROMPT + i)[0].argmax(-1)
+                for i in range(SERVE_GEN)]
+
+    steps, decode_ms = host_timed(decode_steps)
+    replayed = torch.stack([pre_logits.argmax(-1)] + steps[:-1], dim=1).to(torch.int32)
+    check(torch.equal(replayed, served), f"{MODEL_ARCH}: prefill and decode steps replayed along "
+          f"generate's tokens do not give them back")
+
+    def traced(fn) -> tuple[float, float, int, dict]:
+        """(wall ms with the profiler on, device busy ms, device events,
+        K7 bf16 launches) of one call of ``fn``."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0 and e.key not in PROFILER_OWN_EVENTS]
+        k7 = {e.key: e.count for e in events if "flash_attention_tc" in e.key}
+        return (wall, sum(e.self_device_time_total for e in events) / 1e3,
+                sum(e.count for e in events), k7)
+
+    # the decode steps again (the same tokens into the same slots), traced
+    dec_wall, dec_busy, dec_events, _ = traced(decode_steps)
+    del cache, short
+
+    # 4. K7's launches in a traced forward, and its time at this shape beside
+    # SDPA (is_causal, K and V repeated to the query heads outside the
+    # timing) and its plain version; bound: 4 * D operations per visible
+    # (query, key) pair at the bf16 tensor-core rate, or q, k, v and the
+    # output moved once.
+    # torch.profiler on this card loses a block of records in about one
+    # trace in twelve (tools/trace_counts.py): of three traces of the same
+    # forward, those holding fewer device records than the fullest lost
+    # some and are no evidence; the fullest must hold one K7 record a layer.
+    traces = [traced(lambda: M.forward(cfg, params, tokens, last_only=True)) for _ in range(3)]
+    fullest = max(t[2] for t in traces)
+    for _, _, n_events, k7_seen in traces:
+        k7_count = sum(k7_seen.values())
+        check(k7_count == cfg.n_layers if n_events == fullest else k7_count <= cfg.n_layers,
+              f"{MODEL_ARCH}: the profiler saw K7 bf16 {k7_seen} in a forward of {n_events} device "
+              f"records (fullest {fullest}), want {cfg.n_layers}")
+    fwd_wall, fwd_busy, fwd_events, k7_traced = next(t for t in traces if t[2] == fullest)
+    h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = torch.randn(MODEL_BATCH, h, MODEL_SEQ, d, generator=gen, device=dev, dtype=torch.bfloat16)
+    k, v = (torch.randn(MODEL_BATCH, kv, MODEL_SEQ, d, generator=gen, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2))
+    got = FA.flash_attention_fwd(q, k, v, causal=True)
+    want = FA.flash_attention_fwd_plain(q, k, v, causal=True)
+    err = (got.float() - want.float()).abs()
+    check(bool((err <= BF16_ATOL + BF16_RTOL * want.float().abs()).all()),
+          f"K7 bf16 at the model shape: max |kernel - plain| {err.max().item()!r}")
+    k_rep, v_rep = k.repeat_interleave(h // kv, dim=1), v.repeat_interleave(h // kv, dim=1)
+    k7_ms = median_ms(lambda: FA.flash_attention_fwd(q, k, v, causal=True), calls=20)
+    sdpa_ms = median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k_rep, v_rep, is_causal=True), calls=20)
+    k7_plain_ms = median_ms(lambda: FA.flash_attention_fwd_plain(q, k, v, causal=True), calls=1,
+                            bursts=3)
+    visible = MODEL_SEQ * (MODEL_SEQ + 1) // 2
+    flops = 4 * d * h * MODEL_BATCH * visible
+    k7_bound, k7_by = bound_ms(2 * (2 * q.numel() + k.numel() + v.numel()), flops, PEAK_BF16_FLOPS)
+    del q, k, v, k_rep, v_rep, got, want
+
+    gb = 1024 ** 3
+    print(f"  {MODEL_ARCH} bf16 full width ({cfg.n_layers} layers, d {cfg.d_model}, GQA {h}/{kv}, "
+          f"head_dim {d}, vocab {cfg.vocab_size}; {weight_bytes / 1e9:.2f} GB of weights drawn on the "
+          f"card in {init_s:.2f} s): forward(last_only) B={MODEL_BATCH} S={MODEL_SEQ} on the K7 route "
+          f"{forward_ms:.1f} ms the first call, {warm_ms:.1f} ms warm "
+          f"({MODEL_BATCH * MODEL_SEQ / warm_ms * 1e3:,.0f} tokens/s), torch route {plain_ms:.1f} ms; relative L2 between the routes {route_rel!r} (within "
+          f"{MODEL_BF16_REL}), argmax agreement {argmax_agree:.3f}; traced forward: wall "
+          f"{fwd_wall:.1f} ms (profiler on), device busy {fwd_busy:.1f} ms = "
+          f"{100 * fwd_busy / fwd_wall:.1f}%, {fwd_events} device events, K7 {k7_traced}; device "
+          f"records in three traces {[t[2] for t in traces]}, K7 records "
+          f"{[sum(t[3].values()) for t in traces]} | {smi}")
+    print(f"  serving: generate B={MODEL_BATCH} prompt {SERVE_PROMPT} gen {SERVE_GEN}: "
+          f"{generate_ms:.1f} ms; prefill_with_cache {prefill_ms:.1f} ms "
+          f"({MODEL_BATCH * SERVE_PROMPT / prefill_ms * 1e3:,.1f} tokens/s; relative L2 against "
+          f"forward's last position {prefill_rel!r}, within {MODEL_BF16_REL}), decode "
+          f"{decode_ms:.1f} ms for {SERVE_GEN} steps ({MODEL_BATCH * SERVE_GEN / decode_ms * 1e3:,.1f}"
+          f" tokens/s, {decode_ms / SERVE_GEN:.2f} ms a step; traced: wall {dec_wall:.1f} ms, device "
+          f"busy {dec_busy:.1f} ms = {100 * dec_busy / dec_wall:.1f}%, "
+          f"{dec_events / SERVE_GEN:.0f} device events a step); peak device memory "
+          f"{peak / gb:.2f} GiB over the forward and generate (weights {weight_bytes / gb:.2f} GiB)"
+          f" | {smi}")
+    print(f"  K7 bf16 at the model shape (B={MODEL_BATCH}, H={h}, KV={kv}, S={MODEL_SEQ}, D={d}, "
+          f"causal): {k7_ms:.4f} ms ({flops / k7_ms / 1e9:.1f} TFLOP/s, {100 * k7_bound / k7_ms:.1f}% "
+          f"of the bound), SDPA is_causal {sdpa_ms:.4f} ms, plain {k7_plain_ms:.4f} ms, bound "
+          f"{k7_bound:.5f} ms ({k7_by}) | {smi}", flush=True)
+    launches = {name: counts[name] for name in ("flash_attention_tf32", "attention_operand_planes",
+                                                "flash_attention_tc")}
+    print(f"model path launches {launches}", flush=True)
+    return {
+        "launches": launches,
+        "k7": {"ms": k7_ms, "library_ms": sdpa_ms, "plain_ms": k7_plain_ms, "bound_ms": k7_bound,
+               "bound_by": k7_by, "shape": [MODEL_BATCH, h, kv, MODEL_SEQ, d]},
+        "wall_ms": {"forward": forward_ms, "forward_warm": warm_ms, "generate": generate_ms, "prefill": prefill_ms,
+                    "decode": decode_ms},
+        "busy_share": {"forward": fwd_busy / fwd_wall, "decode": dec_busy / dec_wall},
+        "peak_bytes": peak,
+    }
 
 
 def main() -> None:
@@ -1509,13 +1782,6 @@ def main() -> None:
     print("design-space lane passes (ms): " + ", ".join(
         f"{name} {df} {ms:.2f}" for (name, df), ms in lane_ms.items()), flush=True)
 
-    # -- phase 3d: the serving path ----------------------------------------------
-    serving = serving_path_check(smi=smi, reset_counts=reset_counts, read_counts=read_counts,
-                                 host_timed=host_timed, stacked=stacked, check_k2=check_k2,
-                                 check_k3=check_k3)
-    main_ms["serving"] = serving["wall_ms"]
-
-    # -- phase 4: times at the main paths' shapes ----------------------------
     def median_ms(fn, calls: int, bursts: int = 5) -> float:
         """Median over bursts of the mean per-call time of ``calls``
         back-to-back calls, after one warm-up burst.  Where a call's host
@@ -1533,6 +1799,18 @@ def main() -> None:
                 times.append(start.elapsed_time(end) / calls)
         return statistics.median(times)
 
+    def bound_ms(n_bytes: int, n_ops: int, ops_per_s: float = PEAK_OPS_PER_S) -> tuple[float, str]:
+        t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = n_ops / ops_per_s * 1e3
+        return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+    # -- phase 3d: the serving path ----------------------------------------------
+    serving = serving_path_check(smi=smi, reset_counts=reset_counts, read_counts=read_counts,
+                                 host_timed=host_timed, stacked=stacked, check_k2=check_k2,
+                                 check_k3=check_k3)
+    main_ms["serving"] = serving["wall_ms"]
+
+    # -- phase 4: times at the main paths' shapes ----------------------------
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1576,11 +1854,6 @@ def main() -> None:
                   if key not in flush_keys}
         check(bool(events), "torch.profiler recorded no device time")
         return sum(events.values()), events
-
-    def bound_ms(n_bytes: int, n_ops: int, ops_per_s: float = PEAK_OPS_PER_S) -> tuple[float, str]:
-        t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = n_ops / ops_per_s * 1e3
-        return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
     def toggle_bound_ms(n_bytes: int, sums: int, values: int, bits: int,
                         h_values: int = 0, h_bits: int = 0) -> tuple[float, str]:
@@ -1994,6 +2267,13 @@ def main() -> None:
         for key, (ms, count) in sorted(events.items(), key=lambda kv: -kv[1][0])[:10]:
             print(f"  device {ms:.4f} ms in {count} x {key[:90]}")
 
+    # -- phase 6: the model path --------------------------------------------------
+    # Last: its 16 GB of weights and their cached blocks would otherwise sit
+    # under phase 4's flushed device times (run 1 of this phase before phase
+    # 4 added a ~0.14 ms elementwise kernel to every one of them).
+    model = model_path_check(dev=dev, smi=smi, reset_counts=reset_counts, read_counts=read_counts,
+                             host_timed=host_timed, median_ms=median_ms, bound_ms=bound_ms)
+
     meta = {
         "ws_activity_toggles": (
             "src/repro_torch/csrc/activity_profile.cu",
@@ -2071,8 +2351,17 @@ def main() -> None:
             row["library_covers"] = "f32 torch.matmul in full f32"
         if name == "flash_attention_tf32":
             row["library_covers"] = "f32 scaled_dot_product_attention (is_causal, or a window mask)"
-        if name in OFF_PATH:
+        if name in model["launches"]:
+            row["model_launches"] = model["launches"][name]
+            if name in OFF_PATH:
+                # the f32 route's first main path is the model path
+                row["launches"] = model["launches"][name]
+        elif name in OFF_PATH:
             row["main_path"] = False
+        if name == "flash_attention_tc":
+            # K7 at the model path's full-width shape, apart from the
+            # kernel-library shapes summed in "ms"
+            row["model_shape"] = model["k7"]
         if name in ds_launches:
             row["design_space_launches"] = ds_launches[name]
         if name in serving["launches"]:

@@ -4,9 +4,6 @@ Every assigned architecture is a frozen ``ArchConfig``; ``reduced()`` derives
 the same-family smoke-test config (small dims, same block pattern). Shapes are
 the four assigned input regimes; ``applicable()`` encodes the long_500k
 sub-quadratic rule from DESIGN.md §Arch-applicability.
-
-The analytic parameter counts (``param_count``, ``active_param_count``)
-come with the port's model slice, which brings the models they count.
 """
 
 from __future__ import annotations
@@ -129,6 +126,17 @@ class ArchConfig:
             param_dtype="float32",
             compute_dtype="float32",
         )
+
+    def param_count(self) -> int:
+        """Analytic total parameter count (embeddings + stages + head)."""
+        from repro_torch.models.model import count_params_analytic
+
+        return count_params_analytic(self)
+
+    def active_param_count(self) -> int:
+        from repro_torch.models.model import count_params_analytic
+
+        return count_params_analytic(self, active_only=True)
 
 
 @dataclasses.dataclass(frozen=True)

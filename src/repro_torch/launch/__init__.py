@@ -1,3 +1,3 @@
-"""Launchers.  So far ``specs.token_shape``, the shape authority the
-serving expansion shares; the mesh, step and serve launchers come with the
-port's model slice."""
+"""Launchers: ``specs.token_shape`` (the shape authority the serving
+expansion shares) and ``serve`` (batched prefill + greedy decode).  The
+mesh, step and training launchers come with later slices of the port."""

@@ -1,8 +1,10 @@
 """Input shapes shared by the launchers and the serving workload expansion.
 
-The reference's module also builds the dry-run's parameter, optimizer and
-cache specs from its models; those come with the port's model slice.  This
-file holds the token shape they all derive from.
+The reference's module also builds the dry run's batch, parameter,
+optimizer-state and cache specs; they come with the training slice, which
+brings the optimizer they need (the models' own shapes are
+``repro_torch.models.model.shapes_and_axes``).  This file holds the token
+shape they all derive from.
 """
 
 from __future__ import annotations

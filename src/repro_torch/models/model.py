@@ -1,0 +1,398 @@
+"""Model assembly: config-driven heterogeneous block stacks.
+
+A model is ``n_stages`` repetitions of ``cfg.stage_pattern`` (a tuple of
+(mixer, mlp) block kinds).  ``Model`` holds every block's parameters
+stacked along a leading 'layers' axis, as the reference stacks them for its
+scan; the forward and decode walk the stages in a Python loop.
+
+Entry points (the reference's names; the serving path, so they run under
+``torch.inference_mode()``):
+  init_params / init_cache        -> (parameters or cache, logical axes)
+  forward(cfg, params, tokens)    -> logits (full seq, or last position)
+  decode_step                     -> (logits, cache written in place)
+  prefill_with_cache              -> (last logits, filled cache)
+  shapes_and_axes / count_params_analytic   (on the meta device)
+  from_reference_params           -> the reference's parameters as a Model
+
+``attention=`` picks the prefill attention route (``blocks.attn_apply``):
+``"kernel"`` (K7) by default for tokens on a CUDA device, ``"torch"`` for
+tokens on the CPU.  The loss, chunked cross-entropy and activation
+checkpointing come with the training slice.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.models import blocks, ssm, xlstm
+from repro_torch.models.layers import ParamBlock, dense_param, ones_param, param_device, rms_norm
+from repro_torch.parallel.sharding import shard_hint
+
+__all__ = [
+    "Model",
+    "cache_len_for",
+    "count_params_analytic",
+    "decode_step",
+    "default_positions",
+    "forward",
+    "from_reference_params",
+    "hidden_forward",
+    "init_cache",
+    "init_params",
+    "prefill_with_cache",
+    "seeded_numpy_params",
+    "shapes_and_axes",
+]
+
+_MIXERS = {"attn": blocks.Attention, "mamba": ssm.Mamba, "mlstm": xlstm.MLstm,
+           "slstm": xlstm.SLstm}
+_MLPS = {"dense": blocks.Mlp, "moe": blocks.Moe}
+
+
+def _dtype(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+
+class _Stage(ParamBlock):
+    """One position of the stage pattern: ln1, mixer, (ln2, mlp)."""
+
+    def __init__(self, gen, cfg, mixer: str, mlp: str, *, dtype, device):
+        super().__init__()
+        mk = dict(stack=cfg.n_stages, dtype=dtype, device=device)
+        self.add("ln1", ones_param((cfg.d_model,), ("embed",), **mk))
+        self.add_block("mixer", _MIXERS[mixer](gen, cfg, cfg.n_stages, dtype=dtype, device=device))
+        if mlp != "none":
+            self.add("ln2", ones_param((cfg.d_model,), ("embed",), **mk))
+            self.add_block("mlp", _MLPS[mlp](gen, cfg, cfg.n_stages, dtype=dtype, device=device))
+
+
+class Model(ParamBlock):
+    """Every parameter of an architecture, named as the reference's tree:
+    ``embed``, ``head``, ``final_norm`` and ``stages.block<i>.{ln1, mixer,
+    ln2, mlp}``, each block's tensors stacked over the stages.  Drawn from
+    ``gen`` on ``device`` (default: the generator's) in ``cfg.param_dtype``;
+    on ``meta``, nothing is allocated."""
+
+    def __init__(self, cfg, gen: torch.Generator | None = None, *, device=None):
+        super().__init__()
+        dtype = _dtype(cfg.param_dtype)
+        device = param_device(gen, device)
+        mk = dict(dtype=dtype, device=device)
+        if cfg.num_codebooks > 1:
+            k = cfg.num_codebooks
+            self.add("embed", dense_param(gen, (k, cfg.vocab_size, cfg.d_model),
+                                          ("codebooks", "vocab", "embed"), scale=1.0, **mk))
+            self.add("head", dense_param(gen, (k, cfg.d_model, cfg.vocab_size),
+                                         ("codebooks", "embed", "vocab"), **mk))
+        else:
+            self.add("embed", dense_param(gen, (cfg.vocab_size, cfg.d_model), ("vocab", "embed"),
+                                          scale=1.0, **mk))
+            self.add("head", dense_param(gen, (cfg.d_model, cfg.vocab_size), ("embed", "vocab"),
+                                         **mk))
+        self.add("final_norm", ones_param((cfg.d_model,), ("embed",), **mk))
+        stages = ParamBlock()
+        for i, (mixer, mlp) in enumerate(cfg.stage_pattern):
+            stages.add_block(f"block{i}", _Stage(gen, cfg, mixer, mlp, **mk))
+        self.add_block("stages", stages)
+
+
+def init_params(cfg, gen: torch.Generator, *, device=None) -> tuple[Model, dict]:
+    """(parameters, logical-axes tree) drawn from ``gen`` on its device
+    (or ``device``)."""
+    model = Model(cfg, gen, device=device)
+    return model, model.axes
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            out.update(_flatten(value, f"{prefix}{key}."))
+        else:
+            out[prefix + key] = value
+    return out
+
+
+def shapes_and_axes(cfg) -> tuple[dict, dict]:
+    """(tree of meta tensors with each parameter's shape and type, tree of
+    logical axes), allocating nothing (the reference's ``eval_shape``)."""
+    model = Model(cfg, None, device="meta")
+    return model.stage(None), model.axes
+
+
+def count_params_analytic(cfg, active_only: bool = False, exclude_embed: bool = False) -> int:
+    """Exact parameter count from the shapes.  ``active_only`` scales expert
+    tables by top_k/E (MoE active params); ``exclude_embed`` drops the input
+    embedding table (a gather, not a matmul) — the LM head IS counted."""
+    shapes, axes = shapes_and_axes(cfg)
+    ax_of = _flatten(axes)
+    total = 0
+    for name, leaf in _flatten(shapes).items():
+        ax = ax_of[name]
+        n = leaf.numel()
+        if exclude_embed and "vocab" in ax and "embed" in ax:
+            if ax.index("vocab") < ax.index("embed"):
+                continue  # input embedding table
+        if active_only and "experts" in ax:
+            n = n * cfg.top_k // cfg.num_experts
+        total += n
+    return total
+
+
+def from_reference_params(cfg, tree: dict, *, device=None) -> Model:
+    """The JAX package's ``init_params`` tree (nested dicts of arrays with
+    the same keys, each block stacked over stages) as a ``Model`` on
+    ``device``, in ``cfg.param_dtype``: both packages then compute the same
+    function.  Raises on a missing, extra or misshapen leaf."""
+    model = Model(cfg, None, device="meta")
+    want = _flatten(model.stage(None))
+    got = _flatten(tree)
+    if set(got) != set(want):
+        raise ValueError(f"parameter names differ: missing {sorted(set(want) - set(got))}, "
+                         f"extra {sorted(set(got) - set(want))}")
+    dtype = _dtype(cfg.param_dtype)
+    state = {}
+    for name, value in got.items():
+        t = torch.as_tensor(np.asarray(value, dtype=np.float32)).to(device=device, dtype=dtype)
+        if t.shape != want[name].shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(want[name].shape)}")
+        state[name] = t
+    model.load_state_dict(state, assign=True)
+    return model
+
+
+# Leaves drawn around one by ``seeded_numpy_params``: norm weights, Mamba's
+# skip D, the mLSTM forget-gate bias (the reference's ones).
+_ONES_LIKE = ("ln1", "ln2", "final_norm", "q_norm", "k_norm", "out_norm", "D", "b_fgate")
+
+
+def seeded_numpy_params(cfg, seed: int) -> dict:
+    """Parameters both packages can load (the reference's tree of float32
+    numpy arrays), from ``np.random.default_rng(seed)`` over the port's
+    shapes in sorted name order, around the reference's init: 1 + 0.1 N
+    for the leaves it sets to one, log(1..N) + 0.1 N for Mamba's A_log,
+    0.1 N for other vectors (biases), N for embedding tables, N / sqrt(dh)
+    for per-head (dh, dh) matrices and N / sqrt(fan-in) for the other
+    matrices (fan-in: the first dim after the stage axis), with N standard
+    normal draws."""
+    shapes, axes = shapes_and_axes(cfg)
+    ax_of = _flatten(axes)
+    flat = _flatten(shapes)
+    rng = np.random.default_rng(seed)
+    values = {}
+    for name in sorted(flat):
+        shape = tuple(flat[name].shape)
+        stacked = ax_of[name][:1] == ("layers",)
+        inner, inner_axes = (shape[1:], ax_of[name][1:]) if stacked else (shape, ax_of[name])
+        noise = rng.standard_normal(shape, dtype=np.float32)
+        if name.rsplit(".", 1)[-1] in _ONES_LIKE:
+            values[name] = 1.0 + 0.1 * noise
+        elif inner_axes[-1] == "state":
+            values[name] = np.log(np.arange(1, shape[-1] + 1, dtype=np.float32)) + 0.1 * noise
+        elif len(inner) == 1:
+            values[name] = 0.1 * noise
+        elif inner_axes == ("heads", None, None):
+            values[name] = noise * np.float32(inner[-1] ** -0.5)
+        elif "vocab" in inner_axes and inner_axes.index("vocab") < inner_axes.index("embed"):
+            values[name] = noise
+        else:
+            values[name] = noise * np.float32(inner[0] ** -0.5)
+    tree: dict = {}
+    for name, value in values.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = value
+    return tree
+
+
+# ---------------------------------------------------------------------------
+# Embedding / head
+# ---------------------------------------------------------------------------
+
+
+def _embed(cfg, params, tokens, dtype):
+    if cfg.num_codebooks > 1:
+        # tokens: (B, S, K); sum the K codebook embeddings
+        x = sum(params["embed"][k][tokens[..., k]] for k in range(cfg.num_codebooks))
+    else:
+        x = params["embed"][tokens]
+    return x.to(dtype)
+
+
+def _head(cfg, params, x):
+    if cfg.num_codebooks > 1:
+        return torch.einsum("...d,kdv->...kv", x, params["head"].to(x.dtype))
+    return x @ params["head"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Forward (prefill)
+# ---------------------------------------------------------------------------
+
+
+def _attention_route(attention: str | None, device: torch.device) -> str:
+    if attention is None:
+        return "kernel" if device.type == "cuda" else "torch"
+    if attention not in blocks.ATTENTION_ROUTES:
+        raise ValueError(f"unknown attention route {attention!r}; "
+                         f"expected one of {blocks.ATTENTION_ROUTES}")
+    return attention
+
+
+def _stage_fn(cfg, x, stage_params, positions, attention):
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, (mixer, mlp) in enumerate(cfg.stage_pattern):
+        bp = stage_params[f"block{i}"]
+        h = shard_hint(rms_norm(x, bp["ln1"]), "batch", None, "embed")
+        if mixer == "attn":
+            y = blocks.attn_apply(bp["mixer"], h, cfg, positions, attention)
+        elif mixer == "mamba":
+            y = ssm.mamba_apply(bp["mixer"], h, cfg)
+        elif mixer == "mlstm":
+            y = xlstm.mlstm_apply(bp["mixer"], h, cfg)
+        else:
+            y = xlstm.slstm_apply(bp["mixer"], h, cfg)
+        x = x + shard_hint(y, "batch", "seq", "embed")
+        if mlp != "none":
+            h = shard_hint(rms_norm(x, bp["ln2"]), "batch", None, "embed")
+            if mlp == "dense":
+                y = blocks.mlp_apply(bp["mlp"], h, cfg)
+            else:
+                y, a = blocks.moe_apply(bp["mlp"], h, cfg)
+                aux = aux + a
+            x = x + shard_hint(y, "batch", "seq", "embed")
+        x = shard_hint(x, "batch", "seq", "embed")
+    return x, aux
+
+
+def default_positions(cfg, batch: int, seq: int, device=None) -> torch.Tensor:
+    pos = torch.arange(seq, dtype=torch.int32, device=device).expand(batch, seq)
+    if cfg.rope_kind == "mrope":
+        return pos.expand(3, batch, seq)
+    return pos
+
+
+@torch.inference_mode()
+def hidden_forward(cfg, params: Model, tokens: torch.Tensor, positions: torch.Tensor | None = None,
+                   *, attention: str | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Embed + stage stack + final norm. Returns (hidden (B, S, D), aux)."""
+    attention = _attention_route(attention, tokens.device)
+    b, s = tokens.shape[0], tokens.shape[1]
+    if positions is None:
+        positions = default_positions(cfg, b, s, tokens.device)
+    x = shard_hint(_embed(cfg, params, tokens, _dtype(cfg.compute_dtype)), "batch", "seq", "embed")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(cfg.n_stages):
+        x, a = _stage_fn(cfg, x, params["stages"].stage(i), positions, attention)
+        aux = aux + a
+    return rms_norm(x, params["final_norm"]), aux
+
+
+@torch.inference_mode()
+def forward(cfg, params: Model, tokens: torch.Tensor, positions: torch.Tensor | None = None, *,
+            last_only: bool = False, attention: str | None = None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward. Returns (logits, aux_loss).
+
+    ``last_only`` returns next-token logits for the final position only,
+    the serving prefill path (full (B, S, V) logits at long sequences and
+    large vocabularies would be huge and serve no purpose)."""
+    x, aux = hidden_forward(cfg, params, tokens, positions, attention=attention)
+    if last_only:
+        x = x[:, -1]
+    return _head(cfg, params, x), aux
+
+
+# ---------------------------------------------------------------------------
+# KV / state caches + decode
+# ---------------------------------------------------------------------------
+
+
+def cache_len_for(cfg, seq_len: int) -> int:
+    return min(seq_len, cfg.window) if cfg.window else seq_len
+
+
+def init_cache(cfg, batch: int, seq_len: int, dtype=None, device=None) -> tuple[dict, dict]:
+    """Every block's decode cache, stacked over stages, and its axes."""
+    dtype = dtype or _dtype(cfg.compute_dtype)
+    clen = cache_len_for(cfg, seq_len)
+    stack = cfg.n_stages
+    cache: dict[str, Any] = {}
+    axes: dict[str, Any] = {}
+    for i, (mixer, _) in enumerate(cfg.stage_pattern):
+        if mixer == "attn":
+            c, ax = blocks.attn_cache_init(cfg, batch, clen, stack, dtype, device)
+        elif mixer == "mamba":
+            c, ax = ssm.mamba_cache_init(cfg, batch, stack, dtype, device)
+        elif mixer == "mlstm":
+            c, ax = xlstm.mlstm_cache_init(cfg, batch, stack, dtype, device)
+        else:
+            c, ax = xlstm.slstm_cache_init(cfg, batch, stack, dtype, device)
+        cache[f"block{i}"] = c
+        axes[f"block{i}"] = ax
+    return cache, axes
+
+
+@torch.inference_mode()
+def decode_step(cfg, params: Model, cache: dict, tokens: torch.Tensor, pos) -> tuple[torch.Tensor, dict]:
+    """One decoding step for the whole stack: ``tokens`` (B, 1) or (B, 1, K)
+    at position ``pos``.  Writes ``cache`` in place and returns (logits
+    (B, V[, K]), cache)."""
+    pos = int(pos)
+    x = shard_hint(_embed(cfg, params, tokens, _dtype(cfg.compute_dtype)), "batch", "seq", "embed")
+    for s in range(cfg.n_stages):
+        stage_params = params["stages"].stage(s)
+        for i, (mixer, mlp) in enumerate(cfg.stage_pattern):
+            bp = stage_params[f"block{i}"]
+            c = {key: t[s] for key, t in cache[f"block{i}"].items()}
+            h = rms_norm(x, bp["ln1"])
+            if mixer == "attn":
+                y, _ = blocks.attn_decode(bp["mixer"], h, c, pos, cfg)
+            elif mixer == "mamba":
+                y, _ = ssm.mamba_decode(bp["mixer"], h, c, cfg)
+            elif mixer == "mlstm":
+                y, _ = xlstm.mlstm_decode(bp["mixer"], h, c, cfg)
+            else:
+                y, _ = xlstm.slstm_decode(bp["mixer"], h, c, cfg)
+            x = x + y
+            if mlp != "none":
+                h = rms_norm(x, bp["ln2"])
+                if mlp == "dense":
+                    y = blocks.mlp_apply(bp["mlp"], h, cfg)
+                else:
+                    # dropless at decode: a dropped token would diverge
+                    # from the prefill forward pass
+                    y, _ = blocks.moe_apply(bp["mlp"], h, cfg, dropless=True)
+                x = x + y
+    x = rms_norm(x, params["final_norm"])
+    return _head(cfg, params, x[:, 0]), cache
+
+
+# ---------------------------------------------------------------------------
+# Prefill that also fills the decode cache (serving path)
+# ---------------------------------------------------------------------------
+
+
+@torch.inference_mode()
+def prefill_with_cache(cfg, params: Model, tokens: torch.Tensor,
+                       cache_seq_len: int | None = None) -> tuple[torch.Tensor, dict]:
+    """The last position's logits and a filled decode cache, by decoding
+    the prompt token by token (the reference's strategy: exact, and
+    sequential)."""
+    b, s = tokens.shape[0], tokens.shape[1]
+    clen = cache_len_for(cfg, cache_seq_len or s)
+    cache, _ = init_cache(cfg, b, clen, device=tokens.device)
+    logits = None
+    for t in range(s):
+        logits, cache = decode_step(cfg, params, cache, tokens[:, t:t + 1], t)
+    return logits, cache

@@ -34,8 +34,20 @@ and ``j_per_token_robust``, and the best and per-regime cells.
 
     PYTHONPATH=src python tests/_torch_reference.py    # rewrites both files
 
-``tests/test_torch_paper_validation.py`` and ``tests/test_torch_serving.py``
-rebuild them and assert that each equals the committed file.
+And it builds ``src/repro_torch/data/models_reference.json``: for each
+of the ten reduced architectures (``get_arch(arch).reduced()``, MoE
+capacity raised to E so that no token drops, as the reference's
+``tests/test_decode_consistency.py`` does), the JAX package's float32
+last-position logits for parameters from the port's seeded numpy recipe
+(``repro_torch.models.model.seeded_numpy_params``, seed ``MODELS["seed"]``)
+and seeded tokens (recorded in the file): ``forward`` and token-by-token
+``decode_step`` at B = 2, S = 12, and ``forward`` at B = 1, S = 128, past
+the reduced ``attn_chunk`` (64), so that the blockwise path and the
+chunked Mamba and mLSTM scans run.  Logits are stored as base64 float32.
+
+``tests/test_torch_paper_validation.py``, ``tests/test_torch_serving.py``
+and ``tests/test_torch_models.py`` rebuild them and compare each with the
+committed file.
 """
 
 from __future__ import annotations
@@ -47,6 +59,8 @@ from pathlib import Path
 DATA = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "data"
 REFERENCE_PATH = DATA / "table1_reference.json"
 SERVING_REFERENCE_PATH = DATA / "serving_reference.json"
+MODELS_REFERENCE_PATH = DATA / "models_reference.json"
+MODELS = {"seed": 0, "batch": 2, "seq": 12, "long_batch": 1, "long_seq": 128}
 SERVING = {"arch": "mixtral_8x7b", "traffic": "decode_heavy"}
 SERVING_CLIP = (128, 512, 256)  # codesign()'s default profiling clip
 ROWS = COLS = 32
@@ -219,6 +233,74 @@ def build_serving_reference() -> dict:
     }
 
 
+def encode_f32(x) -> dict:
+    """A float32 array as JSON: its shape and its little-endian bytes in base64."""
+    import base64
+
+    import numpy as np
+
+    a = np.ascontiguousarray(np.asarray(x, dtype="<f4"))
+    return {"shape": list(a.shape), "f32_base64": base64.b64encode(a.tobytes()).decode()}
+
+
+def decode_f32(doc: dict):
+    import base64
+
+    import numpy as np
+
+    return np.frombuffer(base64.b64decode(doc["f32_base64"]), dtype="<f4").reshape(doc["shape"])
+
+
+def models_case(arch: str, cfg) -> dict:
+    """The reduced ``cfg`` of ``arch`` as the file records it (MoE capacity
+    E: no drops) and its seeded tokens, (B, S) or (B, S, K)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.registry import ARCH_IDS
+
+    if cfg.num_experts > 1:
+        cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.num_experts))
+    rng = np.random.default_rng([MODELS["seed"], ARCH_IDS.index(arch)])
+    k = (cfg.num_codebooks,) if cfg.num_codebooks > 1 else ()
+    tokens = rng.integers(0, cfg.vocab_size, (MODELS["batch"], MODELS["seq"]) + k, dtype=np.int32)
+    long_tokens = rng.integers(0, cfg.vocab_size, (MODELS["long_batch"], MODELS["long_seq"]) + k,
+                               dtype=np.int32)
+    return {"cfg": cfg, "tokens": tokens, "long_tokens": long_tokens}
+
+
+def build_models_reference() -> dict:
+    """The model-stack document, computed with the JAX package on the CPU."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs.registry import ARCH_IDS, get_arch
+    from repro.models import model as RM
+    from repro_torch.models.model import seeded_numpy_params
+
+    archs = {}
+    for arch in ARCH_IDS:
+        case = models_case(arch, get_arch(arch).reduced())
+        cfg = case["cfg"]
+        params = jax.tree.map(jnp.asarray, seeded_numpy_params(cfg, MODELS["seed"]))
+        tokens = jnp.asarray(case["tokens"])
+        fwd, _ = RM.forward(cfg, params, tokens)
+        cache, _ = RM.init_cache(cfg, tokens.shape[0], tokens.shape[1])
+        for t in range(tokens.shape[1]):
+            dec, cache = RM.decode_step(cfg, params, cache, tokens[:, t:t + 1], jnp.int32(t))
+        long_fwd, _ = RM.forward(cfg, params, jnp.asarray(case["long_tokens"]))
+        archs[arch] = {
+            "capacity_factor": cfg.capacity_factor,
+            "tokens": case["tokens"].tolist(),
+            "long_tokens": case["long_tokens"].tolist(),
+            "forward": encode_f32(fwd[:, -1]),
+            "decode": encode_f32(dec),
+            "long_forward": encode_f32(long_fwd[:, -1]),
+        }
+    return {**MODELS, "archs": archs}
+
+
 def dumps(doc: dict) -> str:
     return json.dumps(doc, indent=1, sort_keys=True) + "\n"
 
@@ -235,3 +317,5 @@ if __name__ == "__main__":
     print(f"wrote {REFERENCE_PATH}")
     SERVING_REFERENCE_PATH.write_text(dumps_compact(build_serving_reference()))
     print(f"wrote {SERVING_REFERENCE_PATH}")
+    MODELS_REFERENCE_PATH.write_text(dumps(build_models_reference()))
+    print(f"wrote {MODELS_REFERENCE_PATH}")

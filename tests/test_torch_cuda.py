@@ -956,3 +956,115 @@ def test_codesign_on_the_card(card):
         np.testing.assert_allclose(g[ok], w[ok], rtol=1e-10, atol=0, err_msg=f)
     assert list(res.best_cell) == ref["best_cell"]
     assert {r: list(res.regime_cell(r)) for r in ("decode", "prefill")} == ref["regime_cells"]
+
+
+# ---------------------------------------------------------------------------
+# The model stack on the card
+# ---------------------------------------------------------------------------
+
+_MODEL_ARCHS = ("musicgen_medium", "jamba_v01_52b", "qwen2_vl_7b", "xlstm_1p3b", "granite_20b",
+                "yi_6b", "qwen15_4b", "qwen3_8b", "llama4_maverick_400b", "mixtral_8x7b")
+# Card against the reference file: the reference's decode-against-forward
+# tolerance (tests/test_decode_consistency.py); K7 route against the torch
+# route in float32 (TF32 three-product attention against f32 softmax).
+_FILE_TOL = 2e-3
+_ROUTE_TOL = 1e-4
+
+
+def _models_case(arch, card):
+    import json
+
+    from _torch_reference import MODELS, MODELS_REFERENCE_PATH, models_case
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import model as TM
+
+    doc = json.loads(MODELS_REFERENCE_PATH.read_text())["archs"][arch]
+    case = models_case(arch, get_arch(arch).reduced())
+    assert case["tokens"].tolist() == doc["tokens"]
+    params = TM.from_reference_params(case["cfg"], TM.seeded_numpy_params(case["cfg"], MODELS["seed"]),
+                                      device=card)
+    return case, doc, params
+
+
+@pytest.mark.parametrize("arch", _MODEL_ARCHS)
+def test_reduced_model_on_the_card_matches_reference_file(card, arch):
+    """Forward (K7 f32 on the attention archs, one launch per attention
+    layer) and stepwise decode at S = 12, and forward at S = 128, against
+    the JAX package's logits in models_reference.json."""
+    from _torch_reference import decode_f32
+
+    from repro_torch.models import model as TM
+
+    case, doc, params = _models_case(arch, card)
+    cfg = case["cfg"]
+    attn_layers = cfg.n_stages * sum(m == "attn" for m, _ in cfg.stage_pattern)
+    toks = torch.from_numpy(case["tokens"]).to(card)
+    before = FA.flash_attention_fwd.tf32_launches
+    fwd, _ = TM.forward(cfg, params, toks, last_only=True)
+    assert FA.flash_attention_fwd.tf32_launches == before + attn_layers
+    np.testing.assert_allclose(fwd.cpu().numpy(), decode_f32(doc["forward"]), rtol=_FILE_TOL,
+                               atol=_FILE_TOL)
+    long_fwd, _ = TM.forward(cfg, params, torch.from_numpy(case["long_tokens"]).to(card),
+                             last_only=True)
+    np.testing.assert_allclose(long_fwd.cpu().numpy(), decode_f32(doc["long_forward"]),
+                               rtol=_FILE_TOL, atol=_FILE_TOL)
+    cache, _ = TM.init_cache(cfg, toks.shape[0], toks.shape[1], device=card)
+    for t in range(toks.shape[1]):
+        dec, cache = TM.decode_step(cfg, params, cache, toks[:, t:t + 1], t)
+    np.testing.assert_allclose(dec.cpu().numpy(), decode_f32(doc["decode"]), rtol=_FILE_TOL,
+                               atol=_FILE_TOL)
+
+
+@pytest.mark.parametrize("arch", [a for a in _MODEL_ARCHS if a != "xlstm_1p3b"])
+def test_model_kernel_route_matches_torch_route_on_the_card(card, arch):
+    from _torch_reference import MODELS
+
+    from repro_torch.models import model as TM
+
+    case, _, params = _models_case(arch, card)
+    cfg = case["cfg"]
+    toks = torch.from_numpy(case["long_tokens"]).to(card)
+    kernel, _ = TM.forward(cfg, params, toks, attention="kernel")
+    before = FA.flash_attention_fwd.launches
+    plain, _ = TM.forward(cfg, params, toks, attention="torch")
+    assert FA.flash_attention_fwd.launches == before
+    np.testing.assert_allclose(kernel.cpu().numpy(), plain.cpu().numpy(), rtol=_ROUTE_TOL,
+                               atol=_ROUTE_TOL)
+    assert MODELS["long_seq"] > cfg.attn_chunk  # the torch route ran blockwise
+
+
+def test_bf16_model_takes_the_tensor_core_attention(card):
+    """Qwen3-8B reduced in bf16: K7's "tc" kernel once per layer, within 3e-2
+    relative L2 of the torch route (three times the bf16 rendering's own
+    distance from float32 at depth 36, measured on the CPU)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import model as TM
+
+    cfg = dataclasses.replace(get_arch("qwen3_8b").reduced(), n_layers=4).with_dtypes(
+        "bfloat16", "bfloat16")
+    gen = torch.Generator(device=card).manual_seed(0)
+    params, _ = TM.init_params(cfg, gen)
+    toks = torch.randint(0, cfg.vocab_size, (2, 256), generator=gen, device=card)
+    before = FA.flash_attention_fwd.tc_launches
+    kernel, _ = TM.forward(cfg, params, toks, last_only=True)
+    assert FA.flash_attention_fwd.tc_launches == before + 4
+    plain, _ = TM.forward(cfg, params, toks, last_only=True, attention="torch")
+    rel = ((kernel.float() - plain.float()).norm() / plain.float().norm()).item()
+    assert kernel.dtype == torch.bfloat16 and rel <= 3e-2, rel
+
+
+def test_generate_on_the_card_matches_the_cpu(card):
+    """Greedy tokens of a reduced arch on the card equal the CPU's."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as TM
+
+    cfg = get_arch("yi_6b").reduced()
+    tree = TM.seeded_numpy_params(cfg, 5)
+    prompt = torch.from_numpy(np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 9)))
+    on_cpu = generate(cfg, TM.from_reference_params(cfg, tree), prompt, 5)
+    on_card = generate(cfg, TM.from_reference_params(cfg, tree, device=card), prompt.to(card), 5)
+    assert torch.equal(on_card.cpu(), on_cpu)
