@@ -157,13 +157,36 @@ Phases (any mismatch exits non-zero; nothing is caught):
    decode walls, tokens/s, the device's busy share in traces of the
    forward and the decode steps, peak device memory, and K7's time at the
    full-width shape beside SDPA ``is_causal`` and its bound.
+7. The training path (``training_path_check``), after phase 6's weights
+   are freed, with the same count discipline: every count must read 0 (the
+   loss takes the torch attention route; K7 has no backward).  The ten
+   reduced architectures in float32 from the same seeded parameters, on
+   the token streams recorded in ``src/repro_torch/data/train_reference.json``:
+   three ``make_train_step`` AdamW steps at B = 2, S = 32 and one at
+   S = 128, each step's ``loss``, ``ce``, ``aux``, ``grad_norm`` and ``lr``
+   and each gradient leaf's norm at the first step within 2e-3 (relative)
+   of the JAX package's; whether ``batch_at_step`` on this machine draws
+   those streams is printed.  Crash and restart through
+   ``launch.train.build`` (yi_6b reduced, 8 steps, a crash after step 5)
+   must end in the straight run's state bit for bit, under
+   ``torch.use_deterministic_algorithms`` (``CUBLAS_WORKSPACE_CONFIG`` is
+   set before CUDA starts); Qwen3-8B reduced's loss must fall over 12
+   steps.  Then Qwen3-8B at its published widths, 2 of 36 layers, in f32
+   with remat "stage", B = 2, S = 2048: 4 steps with finite metrics and a
+   positive gradient norm, step 1's ``ce`` within 1e-4 of
+   ``F.cross_entropy`` on the forward's logits, the chunked
+   cross-entropy (``loss_chunk`` 512) within 1e-5 of its loss and 1e-4 of
+   its gradient norm; prints the step walls, tokens/s, peak memory, the
+   6·N·D FLOP share of the f32 peak, and a traced step's busy share and
+   top device operations.
 
 The last lines are the ``kernels`` JSON object (every kernel; K6's
 "tf32" route with no launch on a main path; K7's f32 route and its prep
 kernel with their launches on the model path, their first; K2's and K3's
 launches on the design-space and serving paths and K7's on the model path
-beside their first main path's; K7 bf16's time at the model's shape), the
-``nvidia-smi`` line and
+beside their first main path's; K7 bf16's time at the model's shape;
+every kernel's launches on the training path, 0), the ``nvidia-smi`` line
+and
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when no
 CUDA device is available or when the repository's ``src/`` is missing.
 """
@@ -874,7 +897,275 @@ def model_path_check(*, dev, smi, reset_counts, read_counts, host_timed, median_
     }
 
 
+# The training path (phase 7): the ten reduced archs' training in float32
+# against the JAX package's (src/repro_torch/data/train_reference.json, at
+# phase 6's tolerance, relative), on the file's token streams (the
+# pipeline draws them with numpy's Zipf sampler, whose stream another numpy
+# version may change); crash and restart through
+# launch.train.build, bit for bit; then Qwen3-8B at its full published
+# widths with depth cut to TRAIN_LAYERS layers (36 layers of f32 parameters,
+# gradients and AdamW moments, 16 bytes a parameter, do not fit one card),
+# in the config's own f32 with remat "stage", at B x S = TRAIN_BATCH x
+# TRAIN_SEQ (above attn_chunk = 1024: blockwise attention).  Its first step's
+# cross-entropy is held to an independent one (the serving forward's f32
+# logits through F.cross_entropy) within TRAIN_CE_RTOL, the same step with
+# a chunked cross-entropy (loss_chunk TRAIN_LOSS_CHUNK) to its loss within
+# TRAIN_CHUNK_RTOL (the reference's identity, tests/test_perf_variants.py)
+# and to its gradient norm within TRAIN_CHUNK_GRAD_RTOL (the reference
+# test's gradient tolerance).
+TRAIN_ARCH = "qwen3_8b"
+TRAIN_LAYERS = 2
+TRAIN_BATCH, TRAIN_SEQ = 2, 2048
+TRAIN_STEPS = 4
+TRAIN_CE_RTOL = 1e-4
+TRAIN_LOSS_CHUNK = 512
+TRAIN_CHUNK_RTOL = 1e-5
+TRAIN_CHUNK_GRAD_RTOL = 1e-4
+TRAIN_RESUME_STEPS, TRAIN_CRASH_AT = 8, 5
+TRAIN_FALL_STEPS, TRAIN_FALL_LR = 12, 1e-3
+
+
+def training_path_check(*, dev, smi, reset_counts, read_counts) -> dict:
+    """Phase 7: the training path on the card through its entry points
+    (``launch.steps.make_train_step``, ``launch.train.build`` and its
+    coordinator), with every kernel count 0 before it and read after:
+    training launches none of the port's kernels (K7 is forward only, and
+    the loss takes the torch attention route)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.registry import ARCH_IDS, get_arch
+    from repro_torch.data.pipeline import DataConfig, batch_at_step
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import build
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+
+    ref = json.loads((ROOT / "src" / "repro_torch" / "data" / "train_reference.json").read_text())
+    metric_keys = ("loss", "ce", "aux", "grad_norm", "lr")
+
+    def batches(cfg, seq, steps, batch=None):
+        data = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                          global_batch=batch or ref["batch"], num_codebooks=cfg.num_codebooks,
+                          seed=ref["seed"])
+        return [{k: torch.from_numpy(v).to(dev) for k, v in batch_at_step(data, step).items()
+                 if k != "positions"} for step in range(steps)]
+
+    def recorded(stream):
+        s = torch.tensor(stream, dtype=torch.int32, device=dev)
+        return {"tokens": s[:, :-1], "labels": s[:, 1:]}
+
+    def flat(tree, prefix=""):
+        out = {}
+        for key, value in tree.items():
+            out.update(flat(value, f"{prefix}{key}/") if isinstance(value, dict)
+                       else {prefix + key: value})
+        return out
+
+    def leaf_norms(cfg, params, batch):
+        leaves = flat(params)
+        loss, _ = M.loss_fn(cfg, params, batch)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return {k: g.double().norm().item() for k, g in zip(leaves, grads)}
+
+    def rel_err(got, want):
+        return abs(got - want) / abs(want) if want else abs(got)
+
+    reset_counts()
+    t_phase = time.perf_counter()
+
+    # 1. The ten reduced archs against the JAX package's training.
+    worst, same_tokens = {}, True
+    for arch in ARCH_IDS:
+        doc = ref["archs"][arch]
+        cfg = dataclasses.replace(get_arch(arch).reduced(), capacity_factor=doc["capacity_factor"])
+        tree = M.seeded_numpy_params(cfg, ref["seed"])
+        got = {}
+        for part, seq, streams in (("steps", ref["seq"], doc["streams"]),
+                                   ("long", ref["long_seq"], [doc["long"]["stream"]])):
+            params = M.from_reference_params(cfg, tree, device=dev).stage(None)
+            data = [recorded(stream) for stream in streams]
+            same_tokens &= all(torch.equal(a[k], b[k]) for a, b in zip(
+                data, batches(cfg, seq, len(streams))) for k in a)
+            norms = leaf_norms(cfg, params, data[0])
+            state = {"params": params, "opt_state": adamw.init_state(adamw.AdamWConfig(), params)}
+            step_fn = make_train_step(cfg, adamw.AdamWConfig())
+            metrics = []
+            for batch in data:
+                state, m = step_fn(state, batch)
+                metrics.append({k: m[k].item() for k in metric_keys})
+            want = doc["steps"] if part == "steps" else [doc["long"]]
+            wnorms = doc["grad_norms"] if part == "steps" else doc["long"]["grad_norms"]
+            check(set(norms) == set(wnorms), f"{arch} {part}: gradient leaves {sorted(norms)}")
+            errs = [rel_err(m[k], w[k]) for m, w in zip(metrics, want) for k in metric_keys]
+            errs += [rel_err(norms[k], wnorms[k]) for k in wnorms]
+            check(all(map(np.isfinite, [v for m in metrics for v in m.values()])),
+                  f"{arch} {part}: non-finite metrics {metrics}")
+            got[part] = max(errs)
+            check(got[part] <= MODEL_FILE_TOL, f"{arch} {part}: the card's training metrics and "
+                  f"gradient leaf norms {max(errs)!r} from the JAX package's (relative), beyond "
+                  f"{MODEL_FILE_TOL}: {metrics}")
+        worst[arch] = got
+    reduced_s = time.perf_counter() - t_phase
+    print(f"  training path, reduced archs (float32, AdamW, B={ref['batch']}, the file's token "
+          f"streams): "
+          f"largest relative difference from the JAX package's metrics and gradient leaf norms "
+          f"({ref['steps']} steps at S={ref['seq']}; 1 step at S={ref['long_seq']}; within "
+          f"{MODEL_FILE_TOL}): " + "; ".join(f"{a} {w['steps']:.2e} {w['long']:.2e}"
+                                             for a, w in worst.items())
+          + f" ({reduced_s:.1f} s); batch_at_step here (numpy {np.__version__}) "
+          + ("gives" if same_tokens else "does not give") + " the file's token streams",
+          flush=True)
+
+    # 2. Crash and restart on the card, bit for bit, under deterministic
+    # algorithms (the embedding's backward accumulates; cuBLAS's workspace
+    # is fixed in main, before CUDA starts); and the loss falls.
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory(prefix="train_smoke_") as tmp:
+            def run(sub, fail_at=None, **kw):
+                coord = build("yi_6b", reduced=True, batch=2, seq=16, steps=TRAIN_RESUME_STEPS,
+                              ckpt_dir=f"{tmp}/{sub}", device=dev, **kw)
+                try:
+                    coord.run(steps=TRAIN_RESUME_STEPS, fail_at_step=fail_at)
+                except RuntimeError as exc:
+                    check(fail_at is not None and str(exc) == f"injected failure at step {fail_at}",
+                          f"crash run: {exc}")
+                return coord
+
+            straight = run("a")
+            run("b", fail_at=TRAIN_CRASH_AT)
+            resumed = run("b")
+            like = straight.init_state_fn(device="meta")
+            (s1, st1, _), (s2, st2, _) = (CheckpointManager(f"{tmp}/{d}").restore_latest(like)
+                                          for d in ("a", "b"))
+            leaves1, leaves2 = flat(st1), flat(st2)
+            same = [k for k in leaves1 if torch.equal(leaves1[k], leaves2[k])]
+            check(s1 == s2 == TRAIN_RESUME_STEPS and len(same) == len(leaves1) == len(leaves2),
+                  f"crash at step {TRAIN_CRASH_AT} and restart: final steps {s1}, {s2}; "
+                  f"{len(leaves1) - len(same)} of {len(leaves1)} leaves differ from the straight run")
+            resumed_steps = [m["step"] for m in resumed.metrics_log]
+            fall = build(TRAIN_ARCH, reduced=True, batch=2, seq=16, steps=TRAIN_FALL_STEPS,
+                         ckpt_dir=f"{tmp}/c", lr=TRAIN_FALL_LR, device=dev)
+            fall.run(steps=TRAIN_FALL_STEPS)
+            losses = [m["loss"] for m in fall.metrics_log]
+            check(losses[-1] < losses[0], f"{TRAIN_ARCH} reduced: the loss did not fall: {losses}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    print(f"  crash and restart (yi_6b reduced, {TRAIN_RESUME_STEPS} steps, crash after step "
+          f"{TRAIN_CRASH_AT}, restart replays steps {resumed_steps}): {len(leaves1)} state leaves equal "
+          f"bit for bit; {TRAIN_ARCH} reduced at lr {TRAIN_FALL_LR}: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} over {TRAIN_FALL_STEPS} steps", flush=True)
+
+    # 3. Qwen3-8B at full width, depth cut, in its own f32.
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    check(cfg.param_dtype == cfg.compute_dtype == "float32" and cfg.remat == "stage"
+          and cfg.loss_chunk == 0, f"{TRAIN_ARCH}: config dtypes {cfg.param_dtype}/"
+          f"{cfg.compute_dtype}, remat {cfg.remat}, loss_chunk {cfg.loss_chunk}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0))[0].stage(None)
+    opt_cfg = adamw.AdamWConfig()
+    state = {"params": params, "opt_state": adamw.init_state(opt_cfg, params)}
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in flat(params).values())
+    data = batches(cfg, TRAIN_SEQ, TRAIN_STEPS + 1, batch=TRAIN_BATCH)
+
+    # an independent cross-entropy of the first batch at the initial
+    # parameters: the serving forward's f32 logits through F.cross_entropy
+    logits, _ = M.forward(cfg, params, data[0]["tokens"], attention="torch")
+    ce_ind = F.cross_entropy(logits.reshape(-1, cfg.vocab_size),
+                             data[0]["labels"].reshape(-1).long()).item()
+    del logits
+    # the chunked cross-entropy's loss and gradient norm, same parameters
+    cfg_chunk = dataclasses.replace(cfg, loss_chunk=TRAIN_LOSS_CHUNK)
+    loss_c, _ = M.loss_fn(cfg_chunk, params, data[0])
+    grads_c = torch.autograd.grad(loss_c, list(flat(params).values()))
+    loss_c, gnorm_c = loss_c.item(), adamw.global_norm(dict(enumerate(grads_c))).item()
+    del grads_c
+
+    step_fn = make_train_step(cfg, opt_cfg)
+    walls, metrics = [], []
+    for batch in data[:TRAIN_STEPS]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: m[k].item() for k in metric_keys})
+    peak = torch.cuda.max_memory_allocated()
+    for i, m in enumerate(metrics):
+        check(all(np.isfinite(v) for v in m.values()) and m["grad_norm"] > 0,
+              f"{TRAIN_ARCH} step {i + 1}: {m}")
+    first = metrics[0]
+    check(rel_err(first["ce"], ce_ind) <= TRAIN_CE_RTOL, f"{TRAIN_ARCH}: step 1's ce "
+          f"{first['ce']!r} against F.cross_entropy's {ce_ind!r}, beyond {TRAIN_CE_RTOL}")
+    check(rel_err(loss_c, first["loss"]) <= TRAIN_CHUNK_RTOL, f"{TRAIN_ARCH}: chunked loss "
+          f"{loss_c!r} against {first['loss']!r}, beyond {TRAIN_CHUNK_RTOL}")
+    check(rel_err(gnorm_c, first["grad_norm"]) <= TRAIN_CHUNK_GRAD_RTOL, f"{TRAIN_ARCH}: chunked "
+          f"gradient norm {gnorm_c!r} against {first['grad_norm']!r}, beyond "
+          f"{TRAIN_CHUNK_GRAD_RTOL}")
+
+    # one more step, traced: the device's busy share and its top operations
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step_fn(state, data[TRAIN_STEPS])
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0 and e.key not in PROFILER_OWN_EVENTS]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
+    counts = read_counts()
+    check(not any(counts.values()), f"the training path launched kernels of the port: "
+          f"{ {k: v for k, v in counts.items() if v} }")
+
+    n_active = M.count_params_analytic(cfg, active_only=True, exclude_embed=True)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = 6 * n_active * tokens
+    warm_ms = statistics.median(walls[1:])
+    gb = 1024 ** 3
+    print(f"  {TRAIN_ARCH} training at full width ({cfg.n_layers} of 36 layers, d {cfg.d_model}, GQA "
+          f"{cfg.num_heads}/{cfg.num_kv_heads}, head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}; {n_params:,} f32 parameters drawn on the card with their moments in "
+          f"{init_s:.2f} s), B={TRAIN_BATCH} S={TRAIN_SEQ}, remat {cfg.remat}, AdamW: step walls "
+          f"{', '.join(f'{w:.1f}' for w in walls)} ms: first {walls[0]:.1f} ms, median of steps "
+          f"2-{TRAIN_STEPS} {warm_ms:.1f} ms ({tokens / warm_ms * 1e3:,.0f} tokens/s); losses "
+          f"{[m['loss'] for m in metrics]}, grad norms {[m['grad_norm'] for m in metrics]}; "
+          f"step 1 ce {first['ce']!r}, "
+          f"F.cross_entropy {ce_ind!r} (relative {rel_err(first['ce'], ce_ind):.2e}), chunked "
+          f"({TRAIN_LOSS_CHUNK}) loss {loss_c!r} ({rel_err(loss_c, first['loss']):.2e}) and "
+          f"gradient norm {gnorm_c!r} ({rel_err(gnorm_c, first['grad_norm']):.2e}); peak device "
+          f"memory {peak / gb:.2f} GiB; model FLOPs 6*N*D = 6 * {n_active:,} * {tokens} = "
+          f"{flops:.4e} a step, {flops / warm_ms / 1e9:.2f} TFLOP/s = "
+          f"{100 * flops / warm_ms / 1e9 / (PEAK_OPS_PER_S / 1e12):.1f}% of the f32 CUDA-core peak "
+          f"({PEAK_OPS_PER_S / 1e12:.0f} TFLOP/s); traced step: wall {traced_ms:.1f} ms "
+          f"(profiler on), device busy {busy_ms:.1f} ms = {100 * busy_ms / traced_ms:.1f}% | {smi}",
+          flush=True)
+    print("  training step's top device operations: " + "; ".join(
+        f"{e.self_device_time_total / 1e3:.1f} ms in {e.count} x {e.key[:70]}" for e in top),
+        flush=True)
+    print(f"training path launches {counts} ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+    return {"launches": counts, "step_ms": walls, "busy_share": busy_ms / traced_ms,
+            "peak_bytes": peak}
+
+
 def main() -> None:
+    import os
+
+    # Phase 7's crash-and-restart check runs under deterministic algorithms,
+    # which need cuBLAS's workspace fixed before CUDA starts (this is the
+    # size PyTorch gives it on Hopper anyway).
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -2274,6 +2565,14 @@ def main() -> None:
     model = model_path_check(dev=dev, smi=smi, reset_counts=reset_counts, read_counts=read_counts,
                              host_timed=host_timed, median_ms=median_ms, bound_ms=bound_ms)
 
+    # -- phase 7: the training path ------------------------------------------------
+    # After phase 6, whose bf16 weights were its own and are freed here.
+    torch.cuda.empty_cache()
+    print(f"phase 7: {torch.cuda.memory_allocated() / 1024 ** 3:.2f} GiB allocated before it",
+          flush=True)
+    training = training_path_check(dev=dev, smi=smi, reset_counts=reset_counts,
+                                   read_counts=read_counts)
+
     meta = {
         "ws_activity_toggles": (
             "src/repro_torch/csrc/activity_profile.cu",
@@ -2368,6 +2667,9 @@ def main() -> None:
             row["serving_launches"] = serving["launches"][name]
         if name in parts:
             row["parts"] = parts[name]
+        # the training path trains through the torch attention route (K7
+        # has no backward): none of the port's kernels is on it
+        row["training_launches"] = training["launches"][name]
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -67,7 +67,8 @@ class ParamBlock(nn.Module):
     stage ``i``'s views (nested for sub-blocks), the per-stage slice the
     reference's scan hands its body; ``stage(None)`` the whole tensors.
     The apply functions take such dicts, so their bodies read as the
-    reference's.  Parameters carry no gradient: the port's models serve.
+    reference's.  Parameters carry gradients (the training slice); the
+    serving entry points run under ``torch.inference_mode()``.
     """
 
     def __init__(self) -> None:
@@ -76,7 +77,7 @@ class ParamBlock(nn.Module):
 
     def add(self, name: str, made: Made) -> None:
         tensor, axes = made
-        self.register_parameter(name, nn.Parameter(tensor, requires_grad=False))
+        self.register_parameter(name, nn.Parameter(tensor))
         self.axes[name] = axes
 
     def add_block(self, name: str, block: "ParamBlock") -> None:

@@ -5,27 +5,41 @@ A model is ``n_stages`` repetitions of ``cfg.stage_pattern`` (a tuple of
 stacked along a leading 'layers' axis, as the reference stacks them for its
 scan; the forward and decode walk the stages in a Python loop.
 
-Entry points (the reference's names; the serving path, so they run under
-``torch.inference_mode()``):
+Entry points (the reference's names):
   init_params / init_cache        -> (parameters or cache, logical axes)
   forward(cfg, params, tokens)    -> logits (full seq, or last position)
+  loss_fn(cfg, params, batch)     -> (loss, {"ce", "aux"}), differentiable
   decode_step                     -> (logits, cache written in place)
   prefill_with_cache              -> (last logits, filled cache)
   shapes_and_axes / count_params_analytic   (on the meta device)
   from_reference_params           -> the reference's parameters as a Model
 
+``params`` is a ``Model`` or its tree of stacked tensors
+(``Model.stage(None)``, the training state's ``params``).  The serving
+entry points run under ``torch.inference_mode()``; ``loss_fn`` runs the
+same stack with gradients, under ``cfg.remat``'s activation checkpoints
+(``torch.utils.checkpoint``) and with the chunked cross-entropy of
+``cfg.loss_chunk``.
+
 ``attention=`` picks the prefill attention route (``blocks.attn_apply``):
 ``"kernel"`` (K7) by default for tokens on a CUDA device, ``"torch"`` for
-tokens on the CPU.  The loss, chunked cross-entropy and activation
-checkpointing come with the training slice.
+tokens on the CPU.  The loss takes ``"torch"`` on every device: K7 has no
+backward (nor has the reference's Pallas kernel), and ``"kernel"`` with
+gradients enabled raises.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from repro_torch.models import blocks, ssm, xlstm
 from repro_torch.models.layers import ParamBlock, dense_param, ones_param, param_device, rms_norm
@@ -42,6 +56,7 @@ __all__ = [
     "hidden_forward",
     "init_cache",
     "init_params",
+    "loss_fn",
     "prefill_with_cache",
     "seeded_numpy_params",
     "shapes_and_axes",
@@ -161,7 +176,8 @@ def from_reference_params(cfg, tree: dict, *, device=None) -> Model:
     dtype = _dtype(cfg.param_dtype)
     state = {}
     for name, value in got.items():
-        t = torch.as_tensor(np.asarray(value, dtype=np.float32)).to(device=device, dtype=dtype)
+        # a copy: training writes the parameters in place, never the caller's arrays
+        t = torch.from_numpy(np.array(value, dtype=np.float32)).to(device=device, dtype=dtype)
         if t.shape != want[name].shape:
             raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(want[name].shape)}")
         state[name] = t
@@ -249,28 +265,67 @@ def _attention_route(attention: str | None, device: torch.device) -> str:
     return attention
 
 
-def _stage_fn(cfg, x, stage_params, positions, attention):
+def _stage_params(stages, i: int) -> dict:
+    """Stage ``i``'s parameter dict (the slice the reference's scan hands
+    its body), from a ``ParamBlock`` or a tree of stacked tensors."""
+    if isinstance(stages, ParamBlock):
+        return stages.stage(i)
+    return {k: _stage_params(v, i) if isinstance(v, dict) else v[i] for k, v in stages.items()}
+
+
+def _remat(fn, *args, context_fn=noop_context_fn):
+    """``fn(*args)`` under an activation checkpoint where gradients are on
+    (``jax.checkpoint``'s role); a plain call under inference or no-grad."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn)
+
+
+# remat="dots": the stage checkpoint saves matrix-product outputs
+# (jax.checkpoint_policies.dots_with_no_batch_dims_saveable's role).
+_SAVE_PRODUCTS = functools.partial(
+    create_selective_checkpoint_contexts,
+    [torch.ops.aten.mm.default, torch.ops.aten.bmm.default, torch.ops.aten.addmm.default],
+)
+REMAT_MODES = ("none", "full", "stage", "block", "dots")
+
+
+def _mixer_block(cfg, x, bp, kind, positions, attention):
+    h = shard_hint(rms_norm(x, bp["ln1"]), "batch", None, "embed")
+    if kind == "attn":
+        y = blocks.attn_apply(bp["mixer"], h, cfg, positions, attention)
+    elif kind == "mamba":
+        y = ssm.mamba_apply(bp["mixer"], h, cfg)
+    elif kind == "mlstm":
+        y = xlstm.mlstm_apply(bp["mixer"], h, cfg)
+    else:
+        y = xlstm.slstm_apply(bp["mixer"], h, cfg)
+    return x + shard_hint(y, "batch", "seq", "embed")
+
+
+def _mlp_block(cfg, x, bp, kind):
+    """(x + the block's MLP, its aux loss or None for a dense MLP)."""
+    h = shard_hint(rms_norm(x, bp["ln2"]), "batch", None, "embed")
+    if kind == "dense":
+        y, a = blocks.mlp_apply(bp["mlp"], h, cfg), None
+    else:
+        y, a = blocks.moe_apply(bp["mlp"], h, cfg)
+    return x + shard_hint(y, "batch", "seq", "embed"), a
+
+
+def _stage_fn(cfg, x, stage_params, positions, attention, block_remat: bool = False):
+    """One stage. ``block_remat`` (``cfg.remat == "block"``) checkpoints
+    each mixer and MLP block: backward keeps one block's activations live
+    instead of a whole stage's."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = _remat if block_remat else (lambda fn, *args: fn(*args))
     for i, (mixer, mlp) in enumerate(cfg.stage_pattern):
         bp = stage_params[f"block{i}"]
-        h = shard_hint(rms_norm(x, bp["ln1"]), "batch", None, "embed")
-        if mixer == "attn":
-            y = blocks.attn_apply(bp["mixer"], h, cfg, positions, attention)
-        elif mixer == "mamba":
-            y = ssm.mamba_apply(bp["mixer"], h, cfg)
-        elif mixer == "mlstm":
-            y = xlstm.mlstm_apply(bp["mixer"], h, cfg)
-        else:
-            y = xlstm.slstm_apply(bp["mixer"], h, cfg)
-        x = x + shard_hint(y, "batch", "seq", "embed")
+        x = remat(_mixer_block, cfg, x, bp, mixer, positions, attention)
         if mlp != "none":
-            h = shard_hint(rms_norm(x, bp["ln2"]), "batch", None, "embed")
-            if mlp == "dense":
-                y = blocks.mlp_apply(bp["mlp"], h, cfg)
-            else:
-                y, a = blocks.moe_apply(bp["mlp"], h, cfg)
+            x, a = remat(_mlp_block, cfg, x, bp, mlp)
+            if a is not None:
                 aux = aux + a
-            x = x + shard_hint(y, "batch", "seq", "embed")
         x = shard_hint(x, "batch", "seq", "embed")
     return x, aux
 
@@ -282,10 +337,14 @@ def default_positions(cfg, batch: int, seq: int, device=None) -> torch.Tensor:
     return pos
 
 
-@torch.inference_mode()
-def hidden_forward(cfg, params: Model, tokens: torch.Tensor, positions: torch.Tensor | None = None,
-                   *, attention: str | None = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """Embed + stage stack + final norm. Returns (hidden (B, S, D), aux)."""
+def _hidden(cfg, params, tokens, positions, attention) -> tuple[torch.Tensor, torch.Tensor]:
+    """Embed + stage stack + final norm: the body of ``hidden_forward`` and
+    of the loss.  With gradients on, ``cfg.remat`` places the checkpoints:
+    "stage" (alias "full") one per stage; "block" one per mixer and MLP
+    block, and none around the stage; "dots" one per stage that saves the
+    matrix products; "none" saves everything."""
+    if cfg.remat not in REMAT_MODES:
+        raise ValueError(f"unknown remat {cfg.remat!r}; expected one of {REMAT_MODES}")
     attention = _attention_route(attention, tokens.device)
     b, s = tokens.shape[0], tokens.shape[1]
     if positions is None:
@@ -293,9 +352,22 @@ def hidden_forward(cfg, params: Model, tokens: torch.Tensor, positions: torch.Te
     x = shard_hint(_embed(cfg, params, tokens, _dtype(cfg.compute_dtype)), "batch", "seq", "embed")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_stages):
-        x, a = _stage_fn(cfg, x, params["stages"].stage(i), positions, attention)
+        args = (cfg, x, _stage_params(params["stages"], i), positions, attention)
+        if cfg.remat in ("full", "stage"):
+            x, a = _remat(_stage_fn, *args)
+        elif cfg.remat == "dots":
+            x, a = _remat(_stage_fn, *args, context_fn=_SAVE_PRODUCTS)
+        else:
+            x, a = _stage_fn(*args, block_remat=cfg.remat == "block")
         aux = aux + a
     return rms_norm(x, params["final_norm"]), aux
+
+
+@torch.inference_mode()
+def hidden_forward(cfg, params: Model, tokens: torch.Tensor, positions: torch.Tensor | None = None,
+                   *, attention: str | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Embed + stage stack + final norm. Returns (hidden (B, S, D), aux)."""
+    return _hidden(cfg, params, tokens, positions, attention)
 
 
 @torch.inference_mode()
@@ -307,10 +379,64 @@ def forward(cfg, params: Model, tokens: torch.Tensor, positions: torch.Tensor | 
     ``last_only`` returns next-token logits for the final position only,
     the serving prefill path (full (B, S, V) logits at long sequences and
     large vocabularies would be huge and serve no purpose)."""
-    x, aux = hidden_forward(cfg, params, tokens, positions, attention=attention)
+    x, aux = _hidden(cfg, params, tokens, positions, attention)
     if last_only:
         x = x[:, -1]
     return _head(cfg, params, x), aux
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logsumexp - label logit per position, in f32, the max held constant
+    (the reference's ``stop_gradient``)."""
+    logits = logits.float()
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    logz = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+    label_logit = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return logz - label_logit
+
+
+def _ce_terms(cfg, head, x_chunk, labels_chunk) -> torch.Tensor:
+    """Sum over the chunk of (logsumexp - label_logit). x_chunk: (B, c, D)."""
+    if cfg.num_codebooks > 1:
+        logits = torch.einsum("...d,kdv->...kv", x_chunk, head.to(x_chunk.dtype))
+    else:
+        logits = x_chunk @ head.to(x_chunk.dtype)
+    return _nll(logits, labels_chunk).sum()
+
+
+def loss_fn(cfg, params, batch: dict, *, attention: str = "torch"
+            ) -> tuple[torch.Tensor, dict]:
+    """(ce + aux_loss_coef * aux, {"ce", "aux"}) of ``batch`` (``tokens``,
+    ``labels``, optional ``positions``), differentiable in ``params``.
+
+    Where ``cfg.loss_chunk`` divides the sequence into more than one chunk,
+    the LM head and cross-entropy run chunk by chunk, each under a
+    checkpoint, so the (B, S, V) logits never exist at once; the same
+    sums otherwise.  ``attention="kernel"`` with gradients enabled raises:
+    K7 is forward only."""
+    attention = _attention_route(attention, batch["tokens"].device)
+    if attention == "kernel" and torch.is_grad_enabled():
+        raise ValueError("attention='kernel' has no backward (K7 is forward only, as is the "
+                         "reference's Pallas kernel); the loss trains through attention='torch'")
+    labels = batch["labels"]
+    chunk = cfg.loss_chunk
+    seq = labels.shape[1]
+    x, aux = _hidden(cfg, params, batch["tokens"], batch.get("positions"), attention)
+    if chunk and seq % chunk == 0 and seq // chunk > 1:
+        total_nll = torch.zeros((), dtype=torch.float32, device=x.device)
+        for c0 in range(0, seq, chunk):
+            total_nll = total_nll + _remat(_ce_terms, cfg, params["head"], x[:, c0:c0 + chunk],
+                                           labels[:, c0:c0 + chunk])
+        ce = total_nll / labels.numel()
+    else:
+        ce = _nll(_head(cfg, params, x), labels).mean()
+    total = ce + cfg.aux_loss_coef * aux
+    return total, {"ce": ce, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -351,7 +477,7 @@ def decode_step(cfg, params: Model, cache: dict, tokens: torch.Tensor, pos) -> t
     pos = int(pos)
     x = shard_hint(_embed(cfg, params, tokens, _dtype(cfg.compute_dtype)), "batch", "seq", "embed")
     for s in range(cfg.n_stages):
-        stage_params = params["stages"].stage(s)
+        stage_params = _stage_params(params["stages"], s)
         for i, (mixer, mlp) in enumerate(cfg.stage_pattern):
             bp = stage_params[f"block{i}"]
             c = {key: t[s] for key, t in cache[f"block{i}"].items()}

@@ -45,14 +45,32 @@ and seeded tokens (recorded in the file): ``forward`` and token-by-token
 the reduced ``attn_chunk`` (64), so that the blockwise path and the
 chunked Mamba and mLSTM scans run.  Logits are stored as base64 float32.
 
-``tests/test_torch_paper_validation.py``, ``tests/test_torch_serving.py``
-and ``tests/test_torch_models.py`` rebuild them and compare each with the
-committed file.
+And it builds ``src/repro_torch/data/train_reference.json``: for each of
+the ten reduced architectures (MoE capacity E, as above), the JAX
+package's training in float32 from the same seeded parameters, with
+batches from its ``data.pipeline.batch_at_step`` (tokens and labels; the
+model makes its own positions) and ``AdamWConfig()``: the reference's
+train step as ``launch.steps.make_train_step`` composes it
+(``jax.value_and_grad(models.model.loss_fn)``, then
+``optim.adamw.apply_updates``), ``TRAIN["steps"]`` steps at B = 2,
+S = 32, each step's ``loss``, ``ce``, ``aux``, ``grad_norm`` and ``lr``,
+and each gradient leaf's L2 norm at the first step; and one step at
+S = 128 (blockwise attention above the reduced ``attn_chunk`` of 64, and
+several Mamba and xLSTM scan chunks) with the same numbers.  No raw
+gradient is stored.  Each step's token stream (B, S + 1[, K]) is
+recorded: tokens are its first S positions, labels its last S.  The
+pipeline draws them with numpy's Zipf sampler, whose stream another numpy
+version may change, so the card is held to the file's tokens.
+
+``tests/test_torch_paper_validation.py``, ``tests/test_torch_serving.py``,
+``tests/test_torch_models.py`` and ``tests/test_torch_training*.py``
+rebuild them and compare each with the committed file.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 from pathlib import Path
 
@@ -60,7 +78,10 @@ DATA = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "data"
 REFERENCE_PATH = DATA / "table1_reference.json"
 SERVING_REFERENCE_PATH = DATA / "serving_reference.json"
 MODELS_REFERENCE_PATH = DATA / "models_reference.json"
+TRAIN_REFERENCE_PATH = DATA / "train_reference.json"
 MODELS = {"seed": 0, "batch": 2, "seq": 12, "long_batch": 1, "long_seq": 128}
+TRAIN = {"seed": 0, "batch": 2, "seq": 32, "steps": 3, "long_seq": 128}
+TRAIN_METRICS = ("loss", "ce", "aux", "grad_norm", "lr")
 SERVING = {"arch": "mixtral_8x7b", "traffic": "decode_heavy"}
 SERVING_CLIP = (128, 512, 256)  # codesign()'s default profiling clip
 ROWS = COLS = 32
@@ -301,8 +322,134 @@ def build_models_reference() -> dict:
     return {**MODELS, "archs": archs}
 
 
+def train_cfg(cfg):
+    """The reduced ``cfg`` as the training file records it: MoE capacity E
+    (no token drops, so the loss is smooth in the parameters)."""
+    if cfg.num_experts > 1:
+        cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.num_experts))
+    return cfg
+
+
+def train_batches(cfg, seq: int, steps: int) -> list[dict]:
+    """Tokens and labels of the reference's ``batch_at_step`` at steps
+    0 .. ``steps`` - 1 (numpy int32)."""
+    from repro.data.pipeline import DataConfig, batch_at_step
+
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=TRAIN["batch"],
+                      num_codebooks=cfg.num_codebooks, seed=TRAIN["seed"])
+    return [{k: v for k, v in batch_at_step(data, step).items() if k != "positions"}
+            for step in range(steps)]
+
+
+def batch_stream(batch: dict) -> list:
+    """A batch's token stream (B, S + 1[, K]) as nested lists."""
+    import numpy as np
+
+    return np.concatenate([batch["tokens"], batch["labels"][:, -1:]], axis=1).tolist()
+
+
+def stream_batch(stream) -> dict:
+    """The tokens and labels (numpy int32) of a recorded stream."""
+    import numpy as np
+
+    s = np.asarray(stream, dtype=np.int32)
+    return {"tokens": s[:, :-1], "labels": s[:, 1:]}
+
+
+def flat_keys(tree, prefix: str = "") -> dict:
+    """A nested dict's leaves by their ``/``-joined key path."""
+    out = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            out.update(flat_keys(value, f"{prefix}{key}/"))
+        else:
+            out[prefix + key] = value
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def reference_train_run(arch: str, seq: int, steps: int) -> dict:
+    """The JAX package's training of the reduced ``arch`` (``train_cfg``)
+    from ``seeded_numpy_params``: per step the metrics (floats), and as
+    numpy the first step's loss gradient and the parameters after the last
+    step.  Cached: the training tests and the file share one run."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from repro.configs.registry import get_arch
+    from repro.models import model as RM
+    from repro.optim import adamw
+    from repro_torch.models.model import seeded_numpy_params
+
+    cfg = train_cfg(get_arch(arch).reduced())
+    opt_cfg = adamw.AdamWConfig()
+    params = jax.tree.map(jnp.asarray, seeded_numpy_params(cfg, TRAIN["seed"]))
+    opt_state = adamw.init_state(opt_cfg, params)
+    value_and_grad = jax.jit(lambda p, b: jax.value_and_grad(
+        lambda q: RM.loss_fn(cfg, q, b), has_aux=True)(p))
+    update = jax.jit(lambda p, o, g: adamw.apply_updates(opt_cfg, p, o, g))
+    metrics, first_grads = [], None
+    for batch in train_batches(cfg, seq, steps):
+        (loss, aux), grads = value_and_grad(params, jax.tree.map(jnp.asarray, batch))
+        params, opt_state, om = update(params, opt_state, grads)
+        if first_grads is None:
+            first_grads = {k: np.asarray(g) for k, g in flat_keys(grads).items()}
+        metrics.append({"loss": float(loss), "ce": float(aux["ce"]), "aux": float(aux["aux"]),
+                        "grad_norm": float(om["grad_norm"]), "lr": float(om["lr"])})
+    return {"cfg": cfg, "metrics": metrics, "grads": first_grads,
+            "params": {k: np.asarray(v) for k, v in flat_keys(params).items()}}
+
+
+def grad_norms(grads: dict) -> dict:
+    import numpy as np
+
+    return {k: float(np.linalg.norm(np.asarray(g, dtype=np.float64))) for k, g in grads.items()}
+
+
+def port_loss_and_grads(cfg, seed: int, batch: dict) -> tuple[dict, dict]:
+    """The port's ``loss_fn`` on ``seeded_numpy_params(cfg, seed)`` and the
+    numpy ``batch``, on the CPU: ({"loss", "ce", "aux"} floats, gradient
+    leaves by key as numpy)."""
+    import torch
+
+    from repro_torch.models import model as TM
+
+    params = TM.from_reference_params(cfg, TM.seeded_numpy_params(cfg, seed)).stage(None)
+    flat = flat_keys(params)
+    loss, metrics = TM.loss_fn(cfg, params, {k: torch.from_numpy(v) for k, v in batch.items()})
+    grads = torch.autograd.grad(loss, list(flat.values()))
+    values = {"loss": loss.item(), "ce": metrics["ce"].item(), "aux": metrics["aux"].item()}
+    return values, {k: g.numpy() for k, g in zip(flat, grads)}
+
+
+def build_train_reference(part: str | None = None) -> dict:
+    """The training document, computed with the JAX package on the CPU;
+    ``part`` "steps" or "long" builds only that half of each arch's
+    entry."""
+    from repro.configs.registry import ARCH_IDS
+
+    archs = {}
+    for arch in ARCH_IDS:
+        entry = {}
+        if part in (None, "steps"):
+            run = reference_train_run(arch, TRAIN["seq"], TRAIN["steps"])
+            entry["capacity_factor"] = run["cfg"].capacity_factor
+            entry["steps"] = run["metrics"]
+            entry["grad_norms"] = grad_norms(run["grads"])
+            entry["streams"] = [batch_stream(b) for b in train_batches(
+                run["cfg"], TRAIN["seq"], TRAIN["steps"])]
+        if part in (None, "long"):
+            run = reference_train_run(arch, TRAIN["long_seq"], 1)
+            entry["long"] = {**run["metrics"][0], "grad_norms": grad_norms(run["grads"]),
+                             "stream": batch_stream(train_batches(run["cfg"], TRAIN["long_seq"], 1)[0])}
+        archs[arch] = entry
+    return {**TRAIN, "archs": archs}
+
+
 def dumps(doc: dict) -> str:
     return json.dumps(doc, indent=1, sort_keys=True) + "\n"
+
 
 
 def dumps_compact(doc: dict) -> str:
@@ -319,3 +466,5 @@ if __name__ == "__main__":
     print(f"wrote {SERVING_REFERENCE_PATH}")
     MODELS_REFERENCE_PATH.write_text(dumps(build_models_reference()))
     print(f"wrote {MODELS_REFERENCE_PATH}")
+    TRAIN_REFERENCE_PATH.write_text(dumps(build_train_reference()))
+    print(f"wrote {TRAIN_REFERENCE_PATH}")

@@ -1068,3 +1068,93 @@ def test_generate_on_the_card_matches_the_cpu(card):
     on_cpu = generate(cfg, TM.from_reference_params(cfg, tree), prompt, 5)
     on_card = generate(cfg, TM.from_reference_params(cfg, tree, device=card), prompt.to(card), 5)
     assert torch.equal(on_card.cpu(), on_cpu)
+
+
+# ---------------------------------------------------------------------------
+# The training path on the card
+# ---------------------------------------------------------------------------
+
+
+
+
+@pytest.mark.parametrize("arch", ["jamba_v01_52b", "xlstm_1p3b", "qwen3_8b", "mixtral_8x7b"])
+def test_reduced_training_on_the_card_matches_reference_file(card, arch):
+    """Three AdamW steps at S = 32 in float32 on the file's token streams:
+    each step's metrics against the JAX package's in train_reference.json
+    (relative, _FILE_TOL), and no kernel of the port launched (the loss
+    takes the torch route)."""
+    import dataclasses
+    import json
+
+    from _torch_reference import TRAIN_METRICS, TRAIN_REFERENCE_PATH, stream_batch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as TM
+    from repro_torch.optim import adamw
+
+    ref = json.loads(TRAIN_REFERENCE_PATH.read_text())
+    doc = ref["archs"][arch]
+    cfg = dataclasses.replace(get_arch(arch).reduced(), capacity_factor=doc["capacity_factor"])
+    params = TM.from_reference_params(cfg, TM.seeded_numpy_params(cfg, ref["seed"]),
+                                      device=card).stage(None)
+    state = {"params": params, "opt_state": adamw.init_state(adamw.AdamWConfig(), params)}
+    step_fn = make_train_step(cfg, adamw.AdamWConfig())
+    before = FA.flash_attention_fwd.launches
+    for want, stream in zip(doc["steps"], doc["streams"]):
+        batch = {k: torch.from_numpy(v).to(card) for k, v in stream_batch(stream).items()}
+        state, metrics = step_fn(state, batch)
+        for key in TRAIN_METRICS:
+            assert metrics[key].item() == pytest.approx(want[key], rel=_FILE_TOL, abs=1e-9), key
+    assert FA.flash_attention_fwd.launches == before
+
+
+def test_training_resumes_bit_identically_on_the_card(card, tmp_path, monkeypatch):
+    """launch.train.build on the card (its default device): a crash after
+    step 5 and a restart end in the straight run's state, bit for bit,
+    under deterministic algorithms."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch.train import build
+    from repro_torch.optim.adamw import tree_leaves
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        def run(sub, fail_at=None):
+            coord = build("yi_6b", reduced=True, batch=2, seq=16, steps=8,
+                          ckpt_dir=str(tmp_path / sub))
+            assert coord.device.type == "cuda"
+            try:
+                coord.run(steps=8, fail_at_step=fail_at)
+            except RuntimeError:
+                assert fail_at is not None
+            return coord
+
+        straight = run("a")
+        run("b", fail_at=5)
+        run("b")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    like = straight.init_state_fn(device="meta")
+    s1, st1, _ = CheckpointManager(tmp_path / "a").restore_latest(like)
+    s2, st2, _ = CheckpointManager(tmp_path / "b").restore_latest(like)
+    assert s1 == s2 == 8
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(st1), tree_leaves(st2)))
+
+
+def test_loss_on_the_card_takes_the_torch_route(card):
+    """CUDA tokens: the loss trains through the torch route whatever the
+    device, and the kernel route raises with gradients."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import model as TM
+
+    cfg = get_arch("qwen3_8b").reduced()
+    params = TM.init_params(cfg, torch.Generator(device=card).manual_seed(0))[0].stage(None)
+    toks = torch.randint(0, cfg.vocab_size, (2, 128), device=card)
+    batch = {"tokens": toks, "labels": toks}
+    before = FA.flash_attention_fwd.launches
+    loss, _ = TM.loss_fn(cfg, params, batch)
+    torch.autograd.grad(loss, params["head"])
+    assert FA.flash_attention_fwd.launches == before
+    with pytest.raises(ValueError, match="no backward"):
+        TM.loss_fn(cfg, params, batch, attention="kernel")

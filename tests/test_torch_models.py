@@ -1,6 +1,6 @@
 """The port's model stack against the JAX package's, case by case from
-``tests/test_archs.py`` (without its gradient step, which belongs to the
-training slice), plus the layers function by function, the parameter
+``tests/test_archs.py`` (its gradient step is in ``test_torch_training.py``),
+plus the layers function by function, the parameter
 trees leaf for leaf, the attention routes, and the committed
 ``models_reference.json``.
 
@@ -150,6 +150,8 @@ def test_init_params_follows_the_reference_init(arch):
     r_params, r_axes = RM.init_params(RR.get_arch(arch).reduced(), jax.random.PRNGKey(3))
     got, want = _flat(params.stage(None)), _flat(r_params)
     assert set(got) == set(want) and _flat(axes) == _flat(r_axes)
+    assert all(value.requires_grad for value in got.values())  # trainable
+    got = {name: value.detach() for name, value in got.items()}
     again, _ = TM.init_params(cfg, torch.Generator().manual_seed(3))
     for name, value in got.items():
         ref = np.asarray(want[name])
