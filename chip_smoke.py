@@ -179,14 +179,43 @@ Phases (any mismatch exits non-zero; nothing is caught):
    its gradient norm; prints the step walls, tokens/s, peak memory, the
    6·N·D FLOP share of the f32 peak, and a traced step's busy share and
    top device operations.
+8. The mesh path (``mesh_path_check``), after phase 7's state is freed,
+   with the same count discipline: a one-rank NCCL process group
+   (rendezvous through a ``FileStore`` in a temporary directory) and a
+   1 x 1 ("data", "model") ``DeviceMesh`` on the card.  Qwen3-8B at its
+   published widths in bf16, phase 6's weights (seed 0) placed by
+   ``parallel.sharding.tree_shardings`` / ``place``, runs
+   ``forward(last_only=True)`` at B = 4, S = 2048 under
+   ``activation_sharding`` on phase 6's tokens: its logits must equal phase
+   6's unsharded forward bit for bit, with K7 launched through
+   ``local_map`` once a layer (36 records in the fullest of three
+   ``torch.profiler`` traces).  Mixtral-8x7B at its published widths with 2
+   of 32 layers in bf16, B = 2, S = 2048: on the mesh the MoE takes its
+   sharded dispatch (``local_map`` dispatch and combine, the
+   expert-parallel redistribution between them), whose logits must equal
+   the single-device branch's bit for bit under
+   ``torch.use_deterministic_algorithms``, and lie within MODEL_BF16_REL
+   (relative L2) of the single-device torch attention route (K7 against
+   its plain version at Mixtral's shape).  38 K7 launches and no other
+   kernel.  Then ``python -m repro_torch.launch.dryrun`` in subprocesses
+   on this machine's torch, Qwen3-8B ``decode_32k`` on the 16x16 mesh,
+   Mixtral-8x7B ``decode_32k`` on the 2x16x16 mesh (512 fake ranks) and
+   Mixtral-8x7B ``train_4k`` on the 16x16 mesh: each "ok", rank 0's
+   placed argument bytes equal to the JAX package's shard bytes for the
+   cell (``DRYRUN_CELLS``), its collectives counted, the MoE cells with an
+   all-to-all; prints each record's H100 roofline terms.  Last, phase 7's Qwen3-8B step (2 layers,
+   f32, B = 2, S = 2048) through the same counters on a one-rank fake mesh,
+   with the roofline at the f32 CUDA-core rate: its counted FLOPs beside
+   6·N·D, its bound beside phase 7's measured step and its peak estimate
+   (arguments + temp) beside phase 7's measured peak (printed, not gated).
 
 The last lines are the ``kernels`` JSON object (every kernel; K6's
 "tf32" route with no launch on a main path; K7's f32 route and its prep
 kernel with their launches on the model path, their first; K2's and K3's
 launches on the design-space and serving paths and K7's on the model path
 beside their first main path's; K7 bf16's time at the model's shape;
-every kernel's launches on the training path, 0), the ``nvidia-smi`` line
-and
+every kernel's launches on the training path, 0, and on the mesh path,
+K7 bf16's 38 and every other 0), the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when no
 CUDA device is available or when the repository's ``src/`` is missing.
 """
@@ -195,6 +224,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import shutil
 import statistics
@@ -438,6 +468,88 @@ def rel_close(got: float, want: float) -> bool:
     return abs(got - want) <= REL_TOL * max(abs(want), 1e-300)
 
 
+def rel_l2(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def launch_counters() -> dict:
+    """Each kernel's launch count: {name: (the wrapper that holds it, its
+    attribute)}.  K6's and K7's routes count on the public wrapper;
+    ``launches`` there is the sum of both GEMM (or attention) routes."""
+    from repro_torch.kernels.activity_profile import kernel as K
+    from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.kernels.toggle_count import kernel as TC
+    from repro_torch.kernels.ws_matmul import kernel as WM
+
+    counters = {name: (getattr(K, name), "launches") for name in KERNELS[:4]}
+    counters.update(
+        stream_toggles=(TC.stream_toggles, "launches"),
+        ws_gemm_tf32=(WM.ws_gemm, "tf32_launches"),
+        ws_gemm_tc=(WM.ws_gemm, "tc_launches"),
+        gemm_operand_planes=(WM.ws_gemm, "prep_launches"),
+        flash_attention_tf32=(FA.flash_attention_fwd, "tf32_launches"),
+        attention_operand_planes=(FA.flash_attention_fwd, "prep_launches"),
+        flash_attention_tc=(FA.flash_attention_fwd, "tc_launches"),
+    )
+    return counters
+
+
+def reset_counts() -> None:
+    for fn, attr in launch_counters().values():
+        setattr(fn, attr, 0)
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: getattr(fn, attr) for name, (fn, attr) in launch_counters().items()}
+
+
+def host_timed(fn):
+    """(fn's result, ms): the host clock around one call that ends in a
+    synchronize."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, (time.perf_counter() - t0) * 1e3
+
+
+def median_ms(fn, calls: int, bursts: int = 5) -> float:
+    """Median over bursts of the mean per-call time of ``calls``
+    back-to-back calls, after one warm-up burst.  Where a call's host
+    work outlasts its kernel, the host's launch rate sets the time."""
+    import torch
+
+    times = []
+    for burst in range(bursts + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        if burst:
+            times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def bound_ms(n_bytes: int, n_ops: int, ops_per_s: float = PEAK_OPS_PER_S) -> tuple[float, str]:
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 # The serving path (phase 3d): the reference's README example at
 # Mixtral-8x7B's full published widths; the sweep's chunk size; the fields
 # of the objective held to the reference file and to each other.
@@ -447,8 +559,7 @@ SERVING_FIELDS = ("feasible", "aspect_lo", "aspect_hi", "aspect_opt", "bus_power
                   "utilization", "j_per_mac", "j_per_mac_robust")
 
 
-def serving_path_check(*, smi, reset_counts, read_counts, host_timed, stacked, check_k2,
-                       check_k3) -> dict:
+def serving_path_check(*, smi, stacked, check_k2, check_k3) -> dict:
     """Phase 3d: ``codesign("mixtral_8x7b", "decode_heavy")`` on the card
     against ``src/repro_torch/data/serving_reference.json`` (the JAX
     package's), K2 and K3 against their plain versions on the path's own
@@ -663,8 +774,7 @@ MODEL_BATCH, MODEL_SEQ = 4, 2048
 SERVE_PROMPT, SERVE_GEN = 64, 16
 
 
-def model_path_check(*, dev, smi, reset_counts, read_counts, host_timed, median_ms,
-                     bound_ms) -> dict:
+def model_path_check(*, dev, smi) -> dict:
     """Phase 6: the model stack on the card through its entry points
     (``models.model.forward``, ``decode_step``, ``launch.serve.generate``).
     Returns the path's K7 launches and K7's time at the full-width shape."""
@@ -685,9 +795,6 @@ def model_path_check(*, dev, smi, reset_counts, read_counts, host_timed, median_
     def logits_of(doc):
         return torch.from_numpy(np.frombuffer(base64.b64decode(doc["f32_base64"]), dtype="<f4")
                                 .reshape(doc["shape"]).copy())
-
-    def rel_l2(a, b):
-        return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
     def reduced_case(arch):
         doc = ref["archs"][arch]
@@ -894,6 +1001,9 @@ def model_path_check(*, dev, smi, reset_counts, read_counts, host_timed, median_
                     "decode": decode_ms},
         "busy_share": {"forward": fwd_busy / fwd_wall, "decode": dec_busy / dec_wall},
         "peak_bytes": peak,
+        # phase 8 holds the mesh path's forward to this one, bit for bit
+        "forward_logits": full.cpu(),
+        "tokens": tokens.cpu(),
     }
 
 
@@ -925,7 +1035,7 @@ TRAIN_RESUME_STEPS, TRAIN_CRASH_AT = 8, 5
 TRAIN_FALL_STEPS, TRAIN_FALL_LR = 12, 1e-3
 
 
-def training_path_check(*, dev, smi, reset_counts, read_counts) -> dict:
+def training_path_check(*, dev, smi) -> dict:
     """Phase 7: the training path on the card through its entry points
     (``launch.steps.make_train_step``, ``launch.train.build`` and its
     coordinator), with every kernel count 0 before it and read after:
@@ -1159,6 +1269,260 @@ def training_path_check(*, dev, smi, reset_counts, read_counts) -> dict:
             "peak_bytes": peak}
 
 
+# The mesh path (phase 8): the model stack on a one-rank NCCL DeviceMesh
+# (1 x 1, ("data", "model")), its parameters placed by the sharding rules
+# (parallel.sharding.tree_shardings / place) and its activations under
+# activation_sharding, so that every shard hint, K7 through local_map and
+# the MoE's sharded dispatch (local_map, the expert-parallel redistribution)
+# run on the card: Qwen3-8B's forward against phase 6's unsharded one, and
+# Mixtral-8x7B's (2 of 32 layers) against its single-device branch, bit for
+# bit under deterministic algorithms, and against the torch attention route
+# within MODEL_BF16_REL.  Then the dry run of three production cells (two
+# decode, one training) on the fake process group in subprocesses (the
+# torch of this machine), and phase 7's step through the dry run's counters beside its
+# measured time and memory.
+MESH_MOE_ARCH, MESH_MOE_LAYERS = "mixtral_8x7b", 2
+MESH_MOE_BATCH, MESH_MOE_SEQ = 2, 2048
+# (arch, shape, multi-pod): the per-device argument bytes of the JAX
+# package's shardings for the cell's inputs, the sum of
+# NamedSharding.shard_shape times the item size (tests/test_torch_dryrun.py
+# recomputes them from the JAX package)
+DRYRUN_CELLS = {
+    ("qwen3_8b", "decode_32k", False): 2_515_647_012,
+    ("mixtral_8x7b", "decode_32k", True): 530_727_444,
+    ("mixtral_8x7b", "train_4k", False): 1_983_171_076,
+}
+DRYRUN_TIMEOUT_S = 600
+# the f32 rate of phase 7's step (CUDA cores; its products run in full f32)
+PHASE7_PEAK_FLOPS = PEAK_OPS_PER_S
+DRYRUN_PHASE7 = """
+import json, sys, dataclasses
+from repro_torch.analysis.roofline import HardwareModel, roofline
+from repro_torch.configs.registry import ShapeSpec, get_arch
+from repro_torch.launch import dryrun as D
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models.model import count_params_analytic
+
+layers, batch, seq, peak = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), float(sys.argv[4])
+cfg = dataclasses.replace(get_arch("qwen3_8b"), n_layers=layers)
+shape = ShapeSpec("phase7", "train", seq, batch)
+with D.fake_world(1):
+    mesh = make_mesh((1, 1), ("data", "model"), device_type="cuda")
+    counts, colls, traces = D.measure_cell(cfg, shape, mesh)
+six_nd = 6.0 * count_params_analytic(cfg, active_only=True, exclude_embed=True) * batch * seq
+hw = HardwareModel(name="h100_sxm_f32", peak_flops=peak)
+rf = roofline(counts["flops"], counts["bytes_accessed"], counts["coll_bytes"], 1, six_nd, hw=hw)
+print(json.dumps({"counts": counts, "six_nd": six_nd, "roofline": rf.as_dict(),
+                  "trace_s": [t.seconds for t in traces]}))
+"""
+
+
+def mesh_path_check(*, dev, smi, model, training) -> dict:
+    """Phase 8: the mesh path on the card (see above).  Returns the
+    kernels' launches on it, the walls and the dry-run records."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.parallel import sharding as sh
+
+    t_phase = time.perf_counter()
+    qwen = get_arch(MODEL_ARCH).with_dtypes("bfloat16", "bfloat16")
+    moe = dataclasses.replace(get_arch(MESH_MOE_ARCH).with_dtypes("bfloat16", "bfloat16"),
+                              n_layers=MESH_MOE_LAYERS)
+
+    def placed(cfg, seed, mesh):
+        params, axes = M.init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
+        tree = params.stage(None)
+        return tree, sh.place(tree, sh.tree_shardings(axes, tree, mesh))
+
+    def tokens_on(t, mesh):
+        return sh.place(t, sh.sharding_for(("batch", "seq"), tuple(t.shape), mesh))
+
+    def k7_records(fn) -> tuple[int, int]:
+        """(device records, K7 bf16 records) of one traced call."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0 and e.key not in PROFILER_OWN_EVENTS]
+        return (sum(e.count for e in events),
+                sum(e.count for e in events if "flash_attention_tc" in e.key))
+
+    with tempfile.TemporaryDirectory(prefix="mesh_smoke_") as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1, device_id=dev)
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"))
+            # (a) Qwen3-8B at full width, phase 6's weights (seed 0) and tokens
+            _, q_params = placed(qwen, 0, mesh)
+            q_tokens = tokens_on(model["tokens"].to(dev), mesh)
+
+            def q_forward():
+                with sh.activation_sharding(mesh):
+                    return M.forward(qwen, q_params, q_tokens, last_only=True)[0]
+
+            # (b) Mixtral-8x7B, 2 layers: the sharded MoE branch on the mesh
+            # and the single-device branch, on the same weights and tokens
+            m_tree, m_params = placed(moe, 0, mesh)
+            gen = torch.Generator(device=dev).manual_seed(2)
+            m_plain_tokens = torch.randint(0, moe.vocab_size, (MESH_MOE_BATCH, MESH_MOE_SEQ),
+                                           generator=gen, device=dev, dtype=torch.int32)
+            m_tokens = tokens_on(m_plain_tokens, mesh)
+
+            def m_forward():
+                with sh.activation_sharding(mesh):
+                    return M.forward(moe, m_params, m_tokens, last_only=True)[0]
+
+            # Qwen3-8B as phase 6 ran it; the MoE's two branches under
+            # deterministic algorithms (its scatter-add accumulates)
+            reset_counts()
+            q_logits, q_ms = host_timed(q_forward)
+            torch.use_deterministic_algorithms(True)
+            try:
+                m_logits, m_ms = host_timed(m_forward)
+                counts = read_counts()
+                m_plain, m_plain_ms = host_timed(
+                    lambda: M.forward(moe, m_tree, m_plain_tokens, last_only=True)[0])
+            finally:
+                torch.use_deterministic_algorithms(False)
+            # K7 at Mixtral's shape against its plain version: the torch route
+            m_torch = M.forward(moe, m_tree, m_plain_tokens, last_only=True, attention="torch")[0]
+            _, q_warm_ms = host_timed(q_forward)
+            traces = [k7_records(q_forward) for _ in range(3)]
+        finally:
+            dist.destroy_process_group()
+
+    check(sh.is_dtensor(q_logits) and sh.is_dtensor(m_logits), "mesh path: the logits are not "
+          "DTensors: the forward did not run on the mesh")
+    q_full, m_full = q_logits.full_tensor(), m_logits.full_tensor()
+    want = model["forward_logits"].to(dev)
+    check(torch.equal(q_full, want), f"{MODEL_ARCH} on the 1x1 mesh: logits differ from phase 6's "
+          f"unsharded forward (max |diff| {(q_full.float() - want.float()).abs().max().item()!r})")
+    check(torch.equal(m_full, m_plain), f"{MESH_MOE_ARCH} on the 1x1 mesh (sharded MoE dispatch): "
+          f"logits differ from the single-device branch (max |diff| "
+          f"{(m_full.float() - m_plain.float()).abs().max().item()!r})")
+    m_route_rel = rel_l2(m_full, m_torch)
+    check(m_route_rel <= MODEL_BF16_REL, f"{MESH_MOE_ARCH} on the 1x1 mesh: K7 route against the "
+          f"single-device torch route, relative L2 {m_route_rel!r} beyond {MODEL_BF16_REL}")
+    want_k7 = qwen.n_layers + moe.n_layers
+    check(counts["flash_attention_tc"] == want_k7, f"mesh path: K7 bf16 launched "
+          f"{counts['flash_attention_tc']} times, want {want_k7} ({qwen.n_layers} + "
+          f"{moe.n_layers} layers)")
+    others = {k: v for k, v in counts.items() if v and k != "flash_attention_tc"}
+    check(not others, f"mesh path launched other kernels: {others}")
+    fullest = max(n for n, _ in traces)
+    for n_events, k7_seen in traces:
+        check(k7_seen == qwen.n_layers if n_events == fullest else k7_seen <= qwen.n_layers,
+              f"{MODEL_ARCH} on the mesh: the profiler saw {k7_seen} K7 records in a forward of "
+              f"{n_events} device records (fullest {fullest}), want {qwen.n_layers}")
+    mesh_s = time.perf_counter() - t_phase
+    print(f"  mesh path (one-rank NCCL mesh 1x1 data/model, parameters placed by the rules, "
+          f"activation_sharding): {MODEL_ARCH} bf16 forward(last_only) B={MODEL_BATCH} "
+          f"S={MODEL_SEQ} equal to phase 6's bit for bit, {q_ms:.1f} ms the first call, "
+          f"{q_warm_ms:.1f} ms warm (phase 6 unsharded: {model['wall_ms']['forward_warm']:.1f} ms "
+          f"warm), K7 records in three traces {[k for _, k in traces]} (device records "
+          f"{[n for n, _ in traces]}); {MESH_MOE_ARCH} ({moe.n_layers} of 32 layers, bf16, "
+          f"B={MESH_MOE_BATCH} S={MESH_MOE_SEQ}) sharded MoE dispatch equal to the single-device "
+          f"branch bit for bit: {m_ms:.1f} ms on the mesh, {m_plain_ms:.1f} ms single-device "
+          f"(deterministic algorithms), relative L2 {m_route_rel:.3e} from the torch route "
+          f"(within {MODEL_BF16_REL}); launches {counts} ({mesh_s:.1f} s) | {smi}", flush=True)
+    del q_params, m_params, m_tree, q_logits, m_logits, q_full, m_full, m_plain, m_torch, want
+    torch.cuda.empty_cache()
+    dryrun = dryrun_check(smi=smi, training=training)
+    print(f"mesh path launches {counts} ({time.perf_counter() - t_phase:.1f} s)", flush=True)
+    return {"launches": counts, "wall_ms": {"qwen_forward": q_ms, "qwen_forward_warm": q_warm_ms,
+                                            "moe_forward": m_ms, "moe_single_device": m_plain_ms},
+            "dryrun": dryrun}
+
+
+def dryrun_check(*, smi, training) -> dict:
+    """Phase 8 (c) and (d): the dry run of DRYRUN_CELLS in subprocesses
+    (status "ok", rank 0's placed argument bytes equal to the JAX
+    package's shard bytes, collectives counted, an all-to-all in a MoE
+    cell), and phase 7's step through the same counters beside its measured
+    time and memory."""
+    import os
+    import tempfile
+
+    from repro_torch.configs.registry import get_arch
+
+    gb = 1024 ** 3
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.pop("REPRO_TORCH_DRYRUN_DEVICES", None)
+    records = {}
+    with tempfile.TemporaryDirectory(prefix="dryrun_smoke_") as tmp:
+        t0 = time.perf_counter()
+        procs = {(arch, shape, pod): subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+             "--out", tmp] + (["--multi-pod"] if pod else []),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+            for arch, shape, pod in DRYRUN_CELLS}
+        phase7 = subprocess.Popen(
+            [sys.executable, "-c", DRYRUN_PHASE7, str(TRAIN_LAYERS), str(TRAIN_BATCH),
+             str(TRAIN_SEQ), repr(PHASE7_PEAK_FLOPS)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+        for cell, proc in procs.items():
+            out, err = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+            check(proc.returncode == 0, f"dry run {cell}: exit {proc.returncode}: {out[-2000:]} "
+                  f"{err[-3000:]}")
+            arch, shape, pod = cell
+            name = f"{arch}__{shape}__{'2x16x16' if pod else '16x16'}.json"
+            records[cell] = json.loads((Path(tmp) / name).read_text())
+        p7_out, p7_err = phase7.communicate(timeout=DRYRUN_TIMEOUT_S)
+        check(phase7.returncode == 0, f"phase 7's step through the counters: {p7_err[-3000:]}")
+        dry_s = time.perf_counter() - t0
+
+    for (arch, shape, pod), rec in records.items():
+        check(rec["status"] == "ok", f"dry run {arch} {shape}: {rec.get('error')}")
+        want_bytes = DRYRUN_CELLS[arch, shape, pod]
+        check(rec["memory"]["argument_size_in_bytes"] == want_bytes, f"dry run {arch} {shape}: "
+              f"argument bytes {rec['memory']['argument_size_in_bytes']} against the JAX "
+              f"package's shard bytes {want_bytes}")
+        check(rec["collectives"]["total_count"] > 0, f"dry run {arch} {shape}: no collective")
+        if get_arch(arch).num_experts:
+            check(rec["collectives"]["count_by_op"].get("all-to-all", 0) > 0,
+                  f"dry run {arch} {shape}: the MoE cell made no all-to-all")
+        r, m = rec["roofline"], rec["memory"]
+        print(f"  dry run {arch} {shape} {rec['mesh']} ({rec['chips']} fake ranks, traced in "
+              f"{rec['compile_s']:.1f} s: stages {rec['traced_stages']} in {rec['trace_s']} s): "
+              f"H100 roofline t_compute {r['t_compute_s']:.4e} s, t_memory {r['t_memory_s']:.4e} s, "
+              f"t_collective {r['t_collective_s']:.4e} s, dominant {r['dominant']}, fraction "
+              f"{r['roofline_fraction']:.4f}; per device: FLOPs {r['flops_per_device']:.4e}, bytes "
+              f"{r['bytes_per_device']:.4e}, collective bytes {r['coll_bytes_per_device']:.4e} in "
+              f"{rec['collectives']['count_by_op']}; arguments {m['argument_size_in_bytes']:,} B "
+              f"(rank 0's blocks, equal to the JAX package's shard sum), outputs "
+              f"{m['output_size_in_bytes']:,} B, aliased {m['alias_size_in_bytes']:,} B, temp "
+              f"{m['temp_size_in_bytes']:,} B", flush=True)
+
+    # (d) phase 7's step through the same counters, beside its measured step
+    p7 = json.loads(p7_out.strip().splitlines()[-1])
+    c, r = p7["counts"], p7["roofline"]
+    step_ms = statistics.median(training["step_ms"][1:])
+    est_peak = c["argument_size_in_bytes"] + c["temp_size_in_bytes"]
+    print(f"  phase 7's step ({MODEL_ARCH}, {TRAIN_LAYERS} layers, f32, B={TRAIN_BATCH} "
+          f"S={TRAIN_SEQ}) through the dry run's counters on a one-rank fake mesh (traced in "
+          f"{[round(s, 2) for s in p7['trace_s']]} s): counted FLOPs {c['flops']:.4e} beside "
+          f"6*N*D {p7['six_nd']:.4e} ({c['flops'] / p7['six_nd']:.3f}x); roofline at the f32 rate "
+          f"{PHASE7_PEAK_FLOPS / 1e12:.0f} TFLOP/s: t_compute {r['t_compute_s'] * 1e3:.1f} ms, "
+          f"t_memory {r['t_memory_s'] * 1e3:.1f} ms (eager bytes {c['bytes_accessed']:.4e}), "
+          f"bound {max(r['t_compute_s'], r['t_memory_s']) * 1e3:.1f} ms ({r['dominant']}) beside "
+          f"the measured step {step_ms:.1f} ms (phase 7, this run); peak estimate (arguments + "
+          f"temp) {est_peak / gb:.2f} GiB beside the measured {training['peak_bytes'] / gb:.2f} "
+          f"GiB | {smi}", flush=True)
+    print(f"dry runs and phase 7's counters: {dry_s:.1f} s", flush=True)
+    return {f"{a}/{s}" + ("/multi-pod" if p else ""): rec["roofline"]
+            for (a, s, p), rec in records.items()}
+
+
 def main() -> None:
     import os
 
@@ -1232,33 +1596,8 @@ def main() -> None:
     # set here so that no environment changes it).
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # Each kernel's launch count: (the wrapper that holds it, its name).
-    # K6's and K7's routes count on the public wrapper; ``launches`` there
-    # is the sum of both GEMM (or attention) routes.
-    counters = {name: (getattr(K, name), "launches") for name in KERNELS[:4]}
-    counters.update(
-        stream_toggles=(TC.stream_toggles, "launches"),
-        ws_gemm_tf32=(WM.ws_gemm, "tf32_launches"),
-        ws_gemm_tc=(WM.ws_gemm, "tc_launches"),
-        gemm_operand_planes=(WM.ws_gemm, "prep_launches"),
-        flash_attention_tf32=(FA.flash_attention_fwd, "tf32_launches"),
-        attention_operand_planes=(FA.flash_attention_fwd, "prep_launches"),
-        flash_attention_tc=(FA.flash_attention_fwd, "tc_launches"),
-    )
-
-    def reset_counts() -> None:
-        for fn, attr in counters.values():
-            setattr(fn, attr, 0)
-            fn.launches = 0
-
-    def read_counts() -> dict:
-        return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
-
     # -- phase 1: the card and the build ------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"card: {smi} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}", flush=True)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1912,15 +2251,6 @@ def main() -> None:
     lane_grid = DesignSpace(rows=(16, 32), cols=(32, 64), input_bits=(16,),
                             dataflows=("WS", "OS")).expand()
 
-    def host_timed(fn):
-        """(fn's result, ms): the host clock around one call that ends in a
-        synchronize."""
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        result = fn()
-        torch.cuda.synchronize()
-        return result, (time.perf_counter() - t0) * 1e3
-
     # 1. Lane-resolved profiles of the six layers on the paper's array.
     clear_profile_cache()
     lane_ms = {}
@@ -2073,32 +2403,8 @@ def main() -> None:
     print("design-space lane passes (ms): " + ", ".join(
         f"{name} {df} {ms:.2f}" for (name, df), ms in lane_ms.items()), flush=True)
 
-    def median_ms(fn, calls: int, bursts: int = 5) -> float:
-        """Median over bursts of the mean per-call time of ``calls``
-        back-to-back calls, after one warm-up burst.  Where a call's host
-        work outlasts its kernel, the host's launch rate sets the time."""
-        times = []
-        for burst in range(bursts + 1):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(calls):
-                fn()
-            end.record()
-            end.synchronize()
-            if burst:
-                times.append(start.elapsed_time(end) / calls)
-        return statistics.median(times)
-
-    def bound_ms(n_bytes: int, n_ops: int, ops_per_s: float = PEAK_OPS_PER_S) -> tuple[float, str]:
-        t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = n_ops / ops_per_s * 1e3
-        return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
     # -- phase 3d: the serving path ----------------------------------------------
-    serving = serving_path_check(smi=smi, reset_counts=reset_counts, read_counts=read_counts,
-                                 host_timed=host_timed, stacked=stacked, check_k2=check_k2,
-                                 check_k3=check_k3)
+    serving = serving_path_check(smi=smi, stacked=stacked, check_k2=check_k2, check_k3=check_k3)
     main_ms["serving"] = serving["wall_ms"]
 
     # -- phase 4: times at the main paths' shapes ----------------------------
@@ -2562,16 +2868,19 @@ def main() -> None:
     # Last: its 16 GB of weights and their cached blocks would otherwise sit
     # under phase 4's flushed device times (run 1 of this phase before phase
     # 4 added a ~0.14 ms elementwise kernel to every one of them).
-    model = model_path_check(dev=dev, smi=smi, reset_counts=reset_counts, read_counts=read_counts,
-                             host_timed=host_timed, median_ms=median_ms, bound_ms=bound_ms)
+    model = model_path_check(dev=dev, smi=smi)
 
     # -- phase 7: the training path ------------------------------------------------
     # After phase 6, whose bf16 weights were its own and are freed here.
     torch.cuda.empty_cache()
     print(f"phase 7: {torch.cuda.memory_allocated() / 1024 ** 3:.2f} GiB allocated before it",
           flush=True)
-    training = training_path_check(dev=dev, smi=smi, reset_counts=reset_counts,
-                                   read_counts=read_counts)
+    training = training_path_check(dev=dev, smi=smi)
+
+    # -- phase 8: the mesh path ------------------------------------------------------
+    # After phase 7, whose f32 state is freed here.
+    torch.cuda.empty_cache()
+    mesh = mesh_path_check(dev=dev, smi=smi, model=model, training=training)
 
     meta = {
         "ws_activity_toggles": (
@@ -2670,6 +2979,8 @@ def main() -> None:
         # the training path trains through the torch attention route (K7
         # has no backward): none of the port's kernels is on it
         row["training_launches"] = training["launches"][name]
+        # the mesh path: K7 through local_map on the one-rank mesh
+        row["mesh_launches"] = mesh["launches"][name]
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(smi)

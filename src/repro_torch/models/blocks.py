@@ -14,14 +14,18 @@ CUDA tensor, its plain version on a CPU one) on the KV heads as they are;
 one query against a cache, stays a torch program, as do the MLP and MoE
 products.  Decode updates the cache in place.
 
-The MoE dispatch and combine run device-local, as one shard of the
-reference's ``shard_map``: with no mesh active, local is global.
+The MoE dispatch and combine run device-local: on each rank's tokens
+under an active mesh (``local_map``, the reference's ``shard_map``), on
+all of them without one.  Under an active mesh (DTensor inputs), either
+attention route runs on each rank's batch and head shards through
+``local_map``.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
 from repro_torch.models.layers import (
@@ -38,7 +42,17 @@ from repro_torch.models.layers import (
     rope_angles,
     zeros_param,
 )
-from repro_torch.parallel.sharding import shard_hint
+from repro_torch.parallel.sharding import (
+    Sharding,
+    active_act_rules,
+    active_mesh,
+    is_dtensor,
+    mesh_sizes,
+    redistribute,
+    replicated,
+    shard_hint,
+    spec_for_axes,
+)
 
 __all__ = [
     "ATTENTION_ROUTES",
@@ -83,9 +97,16 @@ class Attention(ParamBlock):
 
 def _qkv(p, x, cfg, cos, sin):
     """Project + (bias) + (qk-norm) + rope. x: (B, S, D) -> q/k/v (B, H, S, hd)."""
-    q = torch.einsum("bsd,dhk->bhsk", x, p["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dhk->bhsk", x, p["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhk->bhsk", x, p["wv"].to(x.dtype))
+    # under a mesh, the projections' heads are split as the activation
+    # rules split them (or replicated), never their flattened (heads x
+    # head_dim) columns, which a head count the mesh does not divide could
+    # not be unflattened from
+    wq = shard_hint(p["wq"].to(x.dtype), "embed", "heads", None)
+    wk = shard_hint(p["wk"].to(x.dtype), "embed", "kv_heads", None)
+    wv = shard_hint(p["wv"].to(x.dtype), "embed", "kv_heads", None)
+    q = torch.einsum("bsd,dhk->bhsk", x, wq)
+    k = torch.einsum("bsd,dhk->bhsk", x, wk)
+    v = torch.einsum("bsd,dhk->bhsk", x, wv)
     if cfg.qkv_bias:
         q = q + p["bq"].to(x.dtype)[None, :, None, :]
         k = k + p["bk"].to(x.dtype)[None, :, None, :]
@@ -116,29 +137,58 @@ def attn_apply(p, x, cfg, positions, attention: str = "torch") -> torch.Tensor:
     the KV heads and runs the reference's program (blockwise above
     ``cfg.attn_chunk`` tokens, dense below).  A shape outside K7's contract
     raises on the kernel route."""
-    s = x.shape[1]
+    if attention not in ATTENTION_ROUTES:
+        raise ValueError(f"unknown attention route {attention!r}; expected one of {ATTENTION_ROUTES}")
     cos, sin = _rope_tables(cfg, positions)
     q, k, v = _qkv(p, x, cfg, cos, sin)
     q = shard_hint(q, "batch", "heads", None, None)
     k = shard_hint(k, "batch", "kv_heads", None, None)
     v = shard_hint(v, "batch", "kv_heads", None, None)
-    if attention == "kernel":
-        o = flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
-                                causal=True, window=cfg.window)
-    elif attention == "torch":
-        rep = cfg.num_heads // cfg.num_kv_heads
-        if rep > 1:
-            k = k.repeat_interleave(rep, dim=1)
-            v = v.repeat_interleave(rep, dim=1)
-        if s > cfg.attn_chunk:
-            o = blockwise_attention(q, k, v, causal=True, window=cfg.window,
-                                    q_chunk=cfg.attn_chunk, k_chunk=cfg.attn_chunk)
-        else:
-            o = dense_attention(q, k, v, causal=True, window=cfg.window)
-    else:
-        raise ValueError(f"unknown attention route {attention!r}; expected one of {ATTENTION_ROUTES}")
+    o = _attention(q, k, v, cfg, attention)
     out = torch.einsum("bhsk,hkd->bsd", o, p["wo"].to(x.dtype))
     return shard_hint(out, "batch", "seq", "embed")
+
+
+def _attention_local(q, k, v, cfg, route: str) -> torch.Tensor:
+    """Attention of plain tensors on ``route``: q (B, H, S, hd) against k
+    and v (B, KV, S, hd), each query head attending its KV head."""
+    if route == "kernel":
+        return flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
+                                   causal=True, window=cfg.window)
+    rep = q.shape[1] // k.shape[1]
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
+    if q.shape[2] > cfg.attn_chunk:
+        return blockwise_attention(q, k, v, causal=True, window=cfg.window,
+                                   q_chunk=cfg.attn_chunk, k_chunk=cfg.attn_chunk)
+    return dense_attention(q, k, v, causal=True, window=cfg.window)
+
+
+def _attention(q, k, v, cfg, route: str) -> torch.Tensor:
+    """``_attention_local``; on DTensors, on each rank's batch and head
+    shards (``local_map``: attention is batch- and head-parallel, so that
+    neither K7 nor the torch route's chunk loops redistribute anything),
+    with k and v placed as q (no communication where the KV heads split as
+    the query heads do; where they cannot, the KV heads are repeated to the
+    query heads first)."""
+    if not is_dtensor(q):
+        return _attention_local(q, k, v, cfg, route)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    placements = [Replicate() if p.is_partial() else p for p in q.placements]
+    if any(p.is_shard() and p.dim > 1 for p in placements):
+        raise ValueError(f"attention needs whole sequences and heads on each rank: {q.placements}")
+    head_parts = math.prod(mesh.size(i) for i, p in enumerate(placements) if p == Shard(1))
+    if cfg.num_kv_heads % head_parts:
+        rep = cfg.num_heads // cfg.num_kv_heads
+        k, v = k.repeat_interleave(rep, dim=1), v.repeat_interleave(rep, dim=1)
+    q, k, v = (redistribute(t, placements) for t in (q, k, v))
+    return local_map(lambda ql, kl, vl: _attention_local(ql, kl, vl, cfg, route),
+                     out_placements=placements, in_placements=(placements,) * 3,
+                     device_mesh=mesh)(q, k, v)
 
 
 def attn_cache_init(cfg, batch: int, cache_len: int, stack: int, dtype,
@@ -173,9 +223,9 @@ def attn_decode(p, x, cache, pos: int, cfg) -> tuple[torch.Tensor, dict]:
     else:
         slot = min(pos, cache_len - 1)
     k, v, slot_pos = cache["k"], cache["v"], cache["slot_pos"]
-    k[:, :, slot] = k_new[:, :, 0]
-    v[:, :, slot] = v_new[:, :, 0]
-    slot_pos[slot] = pos
+    _write_slot(k, 2, slot, k_new[:, :, 0])
+    _write_slot(v, 2, slot, v_new[:, :, 0])
+    _write_slot(slot_pos, 0, slot, pos)
 
     kv_heads, hd = cfg.num_kv_heads, cfg.head_dim
     qg = q.reshape(b, kv_heads, cfg.num_heads // kv_heads, hd)
@@ -185,6 +235,34 @@ def attn_decode(p, x, cache, pos: int, cfg) -> tuple[torch.Tensor, dict]:
     o = (probs @ v.float()).reshape(b, cfg.num_heads, 1, hd).to(x.dtype)
     out = torch.einsum("bhsk,hkd->bsd", o, p["wo"].to(x.dtype))
     return out, cache
+
+
+def _write_slot(buf: torch.Tensor, dim: int, slot: int, value) -> None:
+    """``buf.select(dim, slot)[...] = value``, in place.  On a DTensor the
+    rank whose block of ``dim`` holds ``slot`` writes its own block (the
+    reference's ``dynamic_update_slice`` of a sharded cache); DTensor's own
+    indexing would write a redistributed copy of a sharded ``dim``."""
+    if not is_dtensor(buf):
+        buf.select(dim, slot)[...] = value
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = buf.device_mesh
+    along = [i for i, p in enumerate(buf.placements) if p == Shard(dim)]
+    block = 0
+    for i in along:
+        block = block * mesh.size(i) + mesh.get_coordinate()[i]
+    n_loc = buf.shape[dim] // math.prod(mesh.size(i) for i in along)
+    if isinstance(value, torch.Tensor):
+        # the value's placements: the buffer's with ``dim`` taken out
+        placements = [Replicate() if p == Shard(dim)
+                      else Shard(p.dim - 1) if p.is_shard() and p.dim > dim else p
+                      for p in buf.placements]
+        if not is_dtensor(value):
+            value = replicated(value, mesh)
+        value = redistribute(value, placements).to_local()
+    if block * n_loc <= slot < (block + 1) * n_loc:
+        buf.to_local().select(dim, slot - block * n_loc)[...] = value
 
 
 # ---------------------------------------------------------------------------
@@ -286,12 +364,27 @@ def _combine_local(expert_out_loc, dest, gate_vals_loc, k_top: int):
     return per_slot.reshape(gate_vals_loc.shape[0], k_top, d).sum(dim=1)
 
 
+def _token_partition(mesh, t: int, act_rules) -> tuple[str, ...] | None:
+    """Mesh axes the flat token dim is sharded over (from the batch rule)."""
+    entry = spec_for_axes(("batch",), (t,), mesh, act_rules)[0]
+    if entry is None:
+        return None
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
 def moe_apply(p, x, cfg, dropless: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Token-dispatch MoE. x: (B, S, D) -> (out, aux_loss).
 
     ``dropless=True`` sizes capacity at the worst case (T*k rows per
     expert) so no token is ever dropped: the decode setting, where a drop
-    would make cached decoding diverge from the prefill forward pass."""
+    would make cached decoding diverge from the prefill forward pass.
+
+    Under an active mesh whose batch rule shards the tokens, the dispatch
+    scatter and the combine gather run on each rank's own tokens
+    (``local_map``, the reference's ``shard_map``) with a per-shard
+    capacity, and only the dense (E, C, D) buffers cross ranks: resharded
+    from capacity-sharded to expert-sharded (``shard_hint``, the
+    expert-parallel all-to-all) and back.  Otherwise local is global."""
     b, s, d = x.shape
     e, k_top = cfg.num_experts, cfg.top_k
     t = b * s
@@ -305,19 +398,54 @@ def moe_apply(p, x, cfg, dropless: bool = False) -> tuple[torch.Tensor, torch.Te
 
     # aux load-balance loss (Switch): E * sum_e f_e * P_e
     pe = probs.mean(dim=0)
-    fe = F.one_hot(expert_idx[:, 0], e).float().mean(dim=0)
+    fe = (expert_idx[:, 0, None] == torch.arange(e, device=expert_idx.device)).float().mean(0)
     aux = e * (fe * pe).sum()
 
+    mesh = active_mesh()
+    tok_axes = (_token_partition(mesh, t, active_act_rules())
+                if mesh is not None and is_dtensor(xt) else None)
     shards = cfg.expert_shards or e
     rep = shards // e
+
+    t_loc = t // math.prod(mesh_sizes(mesh)[a] for a in tok_axes) if tok_axes else t
     if dropless:
-        capacity = t * k_top
+        capacity = t_loc * k_top
     else:
-        capacity = max(int(t * k_top * cfg.capacity_factor) // e, 1)
+        capacity = max(int(t_loc * k_top * cfg.capacity_factor) // e, 1)
     capacity = -(-capacity // rep) * rep  # the physical split must divide
-    expert_in, dest = _dispatch_local(xt, expert_idx, e, k_top, capacity, shards)
-    expert_out = _expert_ffn(p, expert_in, cfg)
-    out = _combine_local(expert_out, dest, gate_vals, k_top)
+
+    if tok_axes is None:
+        # single-device / tiny-batch path: local == global
+        expert_in, dest = _dispatch_local(xt, expert_idx, e, k_top, capacity, shards)
+        expert_out = _expert_ffn(p, expert_in, cfg)
+        out = _combine_local(expert_out, dest, gate_vals, k_top)
+    else:
+        from torch.distributed.tensor import Replicate
+        from torch.distributed.tensor.experimental import local_map
+
+        # the tokens' own placements, whose (B, S) the reshape below can
+        # unflatten (a partial sum reduced); placements as lists, a tuple
+        # would be one per output to local_map
+        back = [Replicate() if p.is_partial() else p for p in xt.placements]
+        tok = list(Sharding(mesh, (tok_axes, None)).placements)  # (T, .) sharded by token
+        cap = list(Sharding(mesh, (None, tok_axes, None)).placements)  # (shards, C, D) by capacity
+        slot = list(Sharding(mesh, (tok_axes,)).placements)  # (T*k,)
+        x_tok, expert_idx, gate_vals = (redistribute(a, tok) for a in (xt, expert_idx, gate_vals))
+        expert_in, dest = local_map(
+            lambda xl, il: _dispatch_local(xl, il, e, k_top, capacity, shards),
+            out_placements=(cap, slot), in_placements=(tok, tok), device_mesh=mesh,
+        )(x_tok, expert_idx)
+        # EP all-to-all: capacity-sharded -> expert-sharded (+ cap on DP axes)
+        expert_in = shard_hint(expert_in, "experts", "expert_cap", "embed")
+        expert_out = _expert_ffn(p, expert_in, cfg)
+        # reverse all-to-all back to capacity-sharded for the local combine
+        expert_out = redistribute(expert_out, cap)
+        out = local_map(
+            lambda eo, de, gv: _combine_local(eo, de, gv, k_top),
+            out_placements=tok, in_placements=(cap, slot, tok), device_mesh=mesh,
+        )(expert_out, dest, gate_vals)
+        out = redistribute(out, back)
+
     if cfg.num_shared_experts:
         out = out + mlp_apply(p["shared"], xt, cfg)
     return out.reshape(b, s, d), aux
@@ -334,14 +462,17 @@ def _expert_ffn(p, expert_in, cfg):
     shards = cfg.expert_shards or e
     rep = shards // e
 
-    def phys(w):
+    def phys(w, axes):
         w = w.to(dt)
         if rep > 1:
             w = w[:, None].expand((e, rep) + w.shape[1:]).reshape((shards,) + w.shape[1:])
-        return w
+        return shard_hint(w, *axes)
 
-    h = act(torch.bmm(expert_in, phys(p["w_gate"])))
-    h = h * torch.bmm(expert_in, phys(p["w_up"]))
+    up_axes = ("experts", "expert_embed", "expert_mlp")  # (E, D, F)
+    down_axes = ("experts", "expert_mlp", "expert_embed")  # (E, F, D)
+    h = act(torch.bmm(expert_in, phys(p["w_gate"], up_axes)))
+    h = h * torch.bmm(expert_in, phys(p["w_up"], up_axes))
     h = shard_hint(h, "experts", "expert_cap", "mlp")
-    out = torch.bmm(h, phys(p["w_down"]))
+    out = torch.bmm(h, phys(p["w_down"], down_axes))
+    # pin the output layout, as the reference does
     return shard_hint(out, "experts", "expert_cap", "embed")

@@ -23,6 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.parallel.sharding import is_dtensor, replicated
+
 __all__ = [
     "ACTIVATIONS",
     "ParamBlock",
@@ -161,14 +163,17 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _freqs(half: int, theta: float, device) -> torch.Tensor:
-    return 1.0 / (theta ** (torch.arange(half, dtype=torch.float32, device=device) / half))
+def _freqs(half: int, theta: float, like: torch.Tensor) -> torch.Tensor:
+    """The rotary frequencies, on ``like``'s device; replicated on its mesh
+    if ``like`` is a DTensor."""
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32, device=like.device) / half))
+    return replicated(freqs, like.device_mesh) if is_dtensor(like) else freqs
 
 
 def rope_angles(positions: torch.Tensor, head_dim: int,
                 theta: float = 10000.0) -> tuple[torch.Tensor, torch.Tensor]:
     """cos/sin tables (..., S, head_dim/2) for integer ``positions`` (..., S)."""
-    ang = positions.float()[..., None] * _freqs(head_dim // 2, theta, positions.device)
+    ang = positions.float()[..., None] * _freqs(head_dim // 2, theta, positions)
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -191,7 +196,7 @@ def mrope_angles(positions: torch.Tensor, head_dim: int, sections: tuple[int, in
         raise ValueError(f"M-RoPE sections {sections} must sum to head_dim/2 = {half}")
     section_id = torch.from_numpy(np.repeat(np.arange(3), sections)).to(positions.device)
     pos_per_freq = positions[section_id]  # (half, B, S): stream per freq index
-    ang = torch.movedim(pos_per_freq, 0, -1).float() * _freqs(half, theta, positions.device)
+    ang = torch.movedim(pos_per_freq, 0, -1).float() * _freqs(half, theta, positions)
     return torch.cos(ang), torch.sin(ang)
 
 

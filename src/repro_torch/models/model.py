@@ -43,7 +43,13 @@ from torch.utils.checkpoint import (
 
 from repro_torch.models import blocks, ssm, xlstm
 from repro_torch.models.layers import ParamBlock, dense_param, ones_param, param_device, rms_norm
-from repro_torch.parallel.sharding import shard_hint
+from repro_torch.parallel.sharding import (
+    from_local,
+    is_dtensor,
+    redistribute,
+    replicated,
+    shard_hint,
+)
 
 __all__ = [
     "Model",
@@ -236,12 +242,51 @@ def seeded_numpy_params(cfg, seed: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def _lookup(table, ids):
+    """``table[ids]``; on a DTensor table, vocab-parallel: each rank looks
+    up the ids in its own block of vocab rows (the others masked to 0),
+    with the embed dim gathered, and the blocks' partial sums are the
+    rows.  DTensor's own embedding of a vocab-sharded table builds a mask
+    of the wrong shape where the ids are batch-sharded, and its indexing
+    backward has no placement on older releases."""
+    if not is_dtensor(table):
+        return table[ids]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = table.device_mesh
+    vocab_dims = [i for i, p in enumerate(table.placements) if p == Shard(0)]
+    table_pl = [Shard(0) if i in vocab_dims else Replicate() for i in range(mesh.ndim)]
+    if not is_dtensor(ids):
+        ids = replicated(ids, mesh)
+    ids_pl = [Replicate() if i in vocab_dims or p.is_partial() else p
+              for i, p in enumerate(ids.placements)]
+    out_pl = [Partial() if i in vocab_dims else p for i, p in enumerate(ids_pl)]
+    # the table's gradient: its vocab block, summed over the ids' shards
+    grad_pl = [Shard(0) if i in vocab_dims else Partial() if p.is_shard() else Replicate()
+               for i, p in enumerate(ids_pl)]
+    coord = mesh.get_coordinate()
+    block = 0
+    for i in vocab_dims:
+        block = block * mesh.size(i) + coord[i]
+
+    def local(tab, idx):
+        rel = idx.long() - block * tab.shape[0]
+        inside = (rel >= 0) & (rel < tab.shape[0])
+        rows = tab[torch.where(inside, rel, 0)]
+        return rows * inside[..., None].to(rows.dtype)
+
+    return local_map(local, out_placements=out_pl, in_placements=(table_pl, ids_pl),
+                     in_grad_placements=(grad_pl, ids_pl), device_mesh=mesh)(
+        redistribute(table, table_pl), redistribute(ids, ids_pl))
+
+
 def _embed(cfg, params, tokens, dtype):
     if cfg.num_codebooks > 1:
         # tokens: (B, S, K); sum the K codebook embeddings
-        x = sum(params["embed"][k][tokens[..., k]] for k in range(cfg.num_codebooks))
+        x = sum(_lookup(params["embed"][k], tokens[..., k]) for k in range(cfg.num_codebooks))
     else:
-        x = params["embed"][tokens]
+        x = _lookup(params["embed"], tokens)
     return x.to(dtype)
 
 
@@ -265,12 +310,34 @@ def _attention_route(attention: str | None, device: torch.device) -> str:
     return attention
 
 
-def _stage_params(stages, i: int) -> dict:
-    """Stage ``i``'s parameter dict (the slice the reference's scan hands
-    its body), from a ``ParamBlock`` or a tree of stacked tensors."""
+def _stage_list(stages, n: int) -> list[dict]:
+    """Each stage's parameter dict (the slices the reference's scan hands
+    its body), from a ``ParamBlock`` or a tree of stacked tensors: one
+    ``unbind`` per stacked leaf, whose backward is one ``stack`` (slicing
+    stage by stage would make each stage's gradient a full stacked tensor,
+    n^2 bytes over the depth)."""
     if isinstance(stages, ParamBlock):
-        return stages.stage(i)
-    return {k: _stage_params(v, i) if isinstance(v, dict) else v[i] for k, v in stages.items()}
+        stages = stages.stage(None)
+    if isinstance(stages, dict):
+        parts = {k: _stage_list(v, n) for k, v in stages.items()}
+        return [{k: parts[k][i] for k in parts} for i in range(n)]
+    return list(_unbind_stages(stages))
+
+
+def _unbind_stages(v: torch.Tensor) -> tuple:
+    """``v.unbind(0)``; for a DTensor, each rank's block unbound (the
+    'layers' dim is never sharded), which also works under
+    ``inference_mode`` on DTensors made outside it, where DTensor's own
+    views cannot set their version counter."""
+    if not is_dtensor(v):
+        return v.unbind(0)
+    from torch.distributed.tensor import Shard
+
+    if any(p == Shard(0) for p in v.placements):
+        raise ValueError(f"the stacked 'layers' dim is sharded: {v.placements}")
+    placements = [Shard(p.dim - 1) if p.is_shard() else p for p in v.placements]
+    return tuple(from_local(t, v.device_mesh, placements, shape=v.shape[1:], stride=v.stride()[1:])
+                 for t in v.to_local().unbind(0))
 
 
 def _remat(fn, *args, context_fn=noop_context_fn):
@@ -337,6 +404,26 @@ def default_positions(cfg, batch: int, seq: int, device=None) -> torch.Tensor:
     return pos
 
 
+def _positions_like(cfg, tokens) -> torch.Tensor:
+    """``default_positions`` for ``tokens``; on their mesh, with the batch
+    dim placed as theirs, if they are a DTensor."""
+    b, s = tokens.shape[0], tokens.shape[1]
+    if not is_dtensor(tokens):
+        return default_positions(cfg, b, s, tokens.device)
+    from torch.distributed.tensor import Replicate, Shard
+
+    local = tokens.to_local()
+    pos = default_positions(cfg, local.shape[0], s, local.device)
+    placements = list(tokens.placements)
+    if any(p.is_shard() and p.dim != 0 for p in placements):
+        raise ValueError(f"tokens sharded beyond the batch dim: {tokens.placements}")
+    if cfg.rope_kind == "mrope":
+        placements = [Shard(1) if p.is_shard() else Replicate() for p in placements]
+    shape = (3, b, s) if cfg.rope_kind == "mrope" else (b, s)
+    return from_local(pos.contiguous(), tokens.device_mesh, placements, shape=torch.Size(shape),
+                      stride=torch.empty(shape, device="meta").stride())
+
+
 def _hidden(cfg, params, tokens, positions, attention) -> tuple[torch.Tensor, torch.Tensor]:
     """Embed + stage stack + final norm: the body of ``hidden_forward`` and
     of the loss.  With gradients on, ``cfg.remat`` places the checkpoints:
@@ -346,13 +433,12 @@ def _hidden(cfg, params, tokens, positions, attention) -> tuple[torch.Tensor, to
     if cfg.remat not in REMAT_MODES:
         raise ValueError(f"unknown remat {cfg.remat!r}; expected one of {REMAT_MODES}")
     attention = _attention_route(attention, tokens.device)
-    b, s = tokens.shape[0], tokens.shape[1]
     if positions is None:
-        positions = default_positions(cfg, b, s, tokens.device)
+        positions = _positions_like(cfg, tokens)
     x = shard_hint(_embed(cfg, params, tokens, _dtype(cfg.compute_dtype)), "batch", "seq", "embed")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_stages):
-        args = (cfg, x, _stage_params(params["stages"], i), positions, attention)
+    for stage_params in _stage_list(params["stages"], cfg.n_stages):
+        args = (cfg, x, stage_params, positions, attention)
         if cfg.remat in ("full", "stage"):
             x, a = _remat(_stage_fn, *args)
         elif cfg.remat == "dots":
@@ -381,8 +467,19 @@ def forward(cfg, params: Model, tokens: torch.Tensor, positions: torch.Tensor | 
     large vocabularies would be huge and serve no purpose)."""
     x, aux = _hidden(cfg, params, tokens, positions, attention)
     if last_only:
-        x = x[:, -1]
-    return _head(cfg, params, x), aux
+        x = shard_hint(x[:, -1], "batch", "embed")
+    else:
+        x = shard_hint(x, "batch", None, "embed")  # gather seq for the head
+    return _logits_hint(cfg, _head(cfg, params, x)), aux
+
+
+def _logits_hint(cfg, logits):
+    """Keep the logits vocab-sharded: the reductions over the vocab then
+    run on the shards instead of all-gathering (B, S, V) per rank.  The
+    seq axis stays unsharded, so that 'model' stays free for the vocab."""
+    ax = (("batch",) + (None,) * (logits.ndim - 2 - (cfg.num_codebooks > 1))
+          + (("codebooks",) if cfg.num_codebooks > 1 else ()) + ("vocab",))
+    return shard_hint(logits, *ax)
 
 
 # ---------------------------------------------------------------------------
@@ -396,8 +493,45 @@ def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     logits = logits.float()
     m = logits.amax(dim=-1, keepdim=True).detach()
     logz = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+    if is_dtensor(logits):
+        return logz - _vocab_parallel_label_logit(logits, labels)
     label_logit = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     return logz - label_logit
+
+
+def _vocab_parallel_label_logit(logits, labels):
+    """The label's logit from logits whose vocab dim may be sharded: each
+    rank gathers from its own vocab block, with the labels outside it
+    masked to 0, and the blocks' sum (one all-reduce of the (B, S) result)
+    is the logit.  Replicating the (B, S, V) logits instead would all-gather
+    them, which the reference's GSPMD program does not do."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = logits.device_mesh
+    vdim = logits.ndim - 1
+    logits = redistribute(logits, [Replicate() if p.is_partial() else p for p in logits.placements])
+    vocab_dims = [i for i, p in enumerate(logits.placements) if p == Shard(vdim)]
+    # placements as lists: local_map reads a tuple as one per output
+    logits_pl = list(logits.placements)
+    label_pl = [Replicate() if i in vocab_dims else p for i, p in enumerate(logits.placements)]
+    out_pl = [Partial() if i in vocab_dims else p for i, p in enumerate(logits.placements)]
+    coord = mesh.get_coordinate()
+    block = 0
+    for i in vocab_dims:
+        block = block * mesh.size(i) + coord[i]
+
+    def local(lg, lab):
+        lab = lab.long() - block * lg.shape[-1]
+        inside = (lab >= 0) & (lab < lg.shape[-1])
+        picked = torch.gather(lg, -1, torch.where(inside, lab, 0)[..., None])[..., 0]
+        return torch.where(inside, picked, 0.0)
+
+    if not is_dtensor(labels):
+        labels = replicated(labels, mesh)
+    labels = redistribute(labels, label_pl)
+    return local_map(local, out_placements=out_pl, in_placements=(logits_pl, label_pl),
+                     device_mesh=mesh)(logits, labels)
 
 
 def _ce_terms(cfg, head, x_chunk, labels_chunk) -> torch.Tensor:
@@ -428,13 +562,16 @@ def loss_fn(cfg, params, batch: dict, *, attention: str = "torch"
     seq = labels.shape[1]
     x, aux = _hidden(cfg, params, batch["tokens"], batch.get("positions"), attention)
     if chunk and seq % chunk == 0 and seq // chunk > 1:
+        # one replicated copy of the (vocab-sharded) head for every chunk
+        head = shard_hint(params["head"], *(None,) * params["head"].ndim)
         total_nll = torch.zeros((), dtype=torch.float32, device=x.device)
         for c0 in range(0, seq, chunk):
-            total_nll = total_nll + _remat(_ce_terms, cfg, params["head"], x[:, c0:c0 + chunk],
+            total_nll = total_nll + _remat(_ce_terms, cfg, head, x[:, c0:c0 + chunk],
                                            labels[:, c0:c0 + chunk])
         ce = total_nll / labels.numel()
     else:
-        ce = _nll(_head(cfg, params, x), labels).mean()
+        x = shard_hint(x, "batch", None, "embed")  # gather seq for the head
+        ce = _nll(_logits_hint(cfg, _head(cfg, params, x)), labels).mean()
     total = ce + cfg.aux_loss_coef * aux
     return total, {"ce": ce, "aux": aux}
 
@@ -476,11 +613,11 @@ def decode_step(cfg, params: Model, cache: dict, tokens: torch.Tensor, pos) -> t
     (B, V[, K]), cache)."""
     pos = int(pos)
     x = shard_hint(_embed(cfg, params, tokens, _dtype(cfg.compute_dtype)), "batch", "seq", "embed")
-    for s in range(cfg.n_stages):
-        stage_params = _stage_params(params["stages"], s)
+    stage_caches = _stage_list(cache, cfg.n_stages)  # views: decode writes them in place
+    for s, stage_params in enumerate(_stage_list(params["stages"], cfg.n_stages)):
         for i, (mixer, mlp) in enumerate(cfg.stage_pattern):
             bp = stage_params[f"block{i}"]
-            c = {key: t[s] for key, t in cache[f"block{i}"].items()}
+            c = stage_caches[s][f"block{i}"]
             h = rms_norm(x, bp["ln1"])
             if mixer == "attn":
                 y, _ = blocks.attn_decode(bp["mixer"], h, c, pos, cfg)
@@ -501,7 +638,7 @@ def decode_step(cfg, params: Model, cache: dict, tokens: torch.Tensor, pos) -> t
                     y, _ = blocks.moe_apply(bp["mlp"], h, cfg, dropless=True)
                 x = x + y
     x = rms_norm(x, params["final_norm"])
-    return _head(cfg, params, x[:, 0]), cache
+    return _logits_hint(cfg, _head(cfg, params, x[:, 0])), cache
 
 
 # ---------------------------------------------------------------------------

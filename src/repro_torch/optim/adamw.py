@@ -86,7 +86,8 @@ class AdamWConfig:
 def init_state(cfg: AdamWConfig, params: Any) -> dict:
     dt = getattr(torch, cfg.moment_dtype)
     leaves = tree_leaves(params)
-    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
+    # zeros placed as the parameter (a DTensor's moments are DTensors)
+    zeros = lambda p: torch.zeros_like(p, dtype=dt, memory_format=torch.contiguous_format)
     device = leaves[0].device if leaves else None
     return {
         "m": tree_map(zeros, params),

@@ -1158,3 +1158,49 @@ def test_loss_on_the_card_takes_the_torch_route(card):
     assert FA.flash_attention_fwd.launches == before
     with pytest.raises(ValueError, match="no backward"):
         TM.loss_fn(cfg, params, batch, attention="kernel")
+
+
+# ---------------------------------------------------------------------------
+# The mesh path: a one-rank NCCL DeviceMesh on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["qwen3_8b", "mixtral_8x7b"])
+def test_one_rank_mesh_forward_equals_unsharded_on_the_card(card, tmp_path, monkeypatch, arch):
+    """A reduced arch's f32 forward on a 1x1 NCCL mesh (parameters placed by
+    the rules, activations under activation_sharding) equals the unsharded
+    forward bit for bit, with K7 launched through local_map once per
+    attention layer; mixtral's MoE takes the sharded dispatch.  Both under
+    deterministic algorithms (the MoE's scatter-add accumulates)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as TM
+    from repro_torch.parallel import sharding as sh
+
+    cfg = get_arch(arch).reduced()
+    params, axes = TM.init_params(cfg, torch.Generator(device=card).manual_seed(0))
+    tree = params.stage(None)
+    toks = torch.randint(0, cfg.vocab_size, (2, 128), device=card, dtype=torch.int32,
+                         generator=torch.Generator(device=card).manual_seed(1))
+    attn_layers = cfg.n_stages * sum(m == "attn" for m, _ in cfg.stage_pattern)
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1, device_id=card)
+    try:
+        want, _ = TM.forward(cfg, tree, toks, last_only=True)
+        mesh = make_mesh((1, 1), ("data", "model"))
+        placed = sh.place(tree, sh.tree_shardings(axes, tree, mesh))
+        placed_toks = sh.place(toks, sh.sharding_for(("batch", "seq"), tuple(toks.shape), mesh))
+        before = FA.flash_attention_fwd.tf32_launches
+        with sh.activation_sharding(mesh):
+            got, _ = TM.forward(cfg, placed, placed_toks, last_only=True)
+        launched = FA.flash_attention_fwd.tf32_launches - before
+        got = got.full_tensor()
+    finally:
+        dist.destroy_process_group()
+        torch.use_deterministic_algorithms(False)
+    assert launched == attn_layers
+    assert torch.equal(got, want)
