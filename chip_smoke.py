@@ -12,9 +12,10 @@ Phases (any mismatch exits non-zero; nothing is caught):
    and check with ``cuobjdump -sass`` that the tensor-core kernels hold
    ``HGMMA`` (bf16), ``IGMMA`` (int8) and, in K6 and K7's f32 kernel, TF32
    ``HGMMA`` instructions; print the ``POPC``, ``SHFL``, 128-bit ``LDG``
-   and ``REDUX`` counts of K1, K2, K3 and K5 (none may hold a shuffle, and
-   K3 and K5 must hold 16-byte loads); K1, K2, K3, K5 and K7's f32 kernel
-   may not spill.
+   and ``REDUX`` counts of K1, K2, K3 and K5, and the ``POPC``, ``VOTE`` and
+   ``REDUX`` counts of the lane counters L1 and L2 (none may hold a
+   shuffle, and K3 and K5 must hold 16-byte loads); K1, K2, K3, K5, L1, L2
+   and K7's f32 kernel may not spill.
 2. Hold each kernel against its plain PyTorch version on the card, element
    for element: K1 and K4 (K4's wrapper launches K5's kernel) on the
    reference test matrices and on every ResNet50 Table-I layer (and the
@@ -74,11 +75,16 @@ Phases (any mismatch exits non-zero; nothing is caught):
      on the tensor cores.
    Then the design-space path (phase 3c), with the same count discipline:
    * lane-resolved profiles (``profile_gemm(..., lane_detail=True,
-     backend="cuda")``, cache cleared) of the six layers, WS b_v=37 and OS:
-     the lane sums must equal the file's counts and K1's (WS) or K4's (OS)
-     counts on the same operands, and each layer's first k tile must give
-     the CPU lane pass's lanes; each lane pass's wall time and peak device
-     memory are printed;
+     backend="cuda")``, cache cleared) of the six layers, WS b_v=37 and OS,
+     each with the counts set to 0 just before it: L2 and L1 once each
+     (WS) or L2 twice (OS), and no other kernel; the lane sums must equal
+     the file's counts and K1's (WS) or K4's (OS) counts on the same
+     operands, each layer's first k tile must give the CPU lane pass's
+     lanes, and L1 and L2 must equal their plain versions bit for bit on
+     each layer's operands and on their edge cases (``LANE_EDGE_CASES``,
+     ``STREAM_LANE_EDGE_CASES``; L1's lane sums also K1's v counts); each
+     profile's wall time, launches and peak device memory are printed
+     beside what the PyTorch lane passes cost;
    * the path itself, each step timed: ``measured_design_activities`` (K2,
      K3) over the example grid (rows 16/32, cols 8-128, b16, WS and OS,
      bus-invert off and on: 40 points) and the first three layers, whose
@@ -130,10 +136,14 @@ Phases (any mismatch exits non-zero; nothing is caught):
    attention cases (seeded f32 inputs, held there to 1e-5 of its plain
    version and to the reference's 2e-5 of a float64 rendering), each beside
    SDPA in f32, with the same two bounds, and its prep kernel also by
-   device time.  Time the design-space path's PyTorch programs (the lane
-   passes, ``_evaluate_core``, ``_sweep_core``, ``_coeff_eval_core``): a
-   call, its kernel launches, device time and peak memory, beside the
-   numpy engine; and the layout evaluator's warm throughput in (point x
+   device time.  Time L1 and L2 at the six layers' lane-profile shapes
+   (CUDA events, and device time with the L2 flushed) beside their plain
+   versions, with the bound (bytes, or integer ops: a multiply-add a
+   partial sum, an XOR and a full adder a transition word) and its binding
+   term.  Time the lane profiles whole and the design-space path's
+   PyTorch programs (``_evaluate_core``, ``_sweep_core``,
+   ``_coeff_eval_core``): a call, its kernel launches, device time and
+   peak memory, beside the numpy engine; and the layout evaluator's warm throughput in (point x
    layout) cells/s on the fleet grid of ``benchmarks/bench_layout.py``
    (1152 points x 8 families).
 5. Trace each main path once more with ``torch.profiler`` and print the
@@ -203,7 +213,11 @@ Phases (any mismatch exits non-zero; nothing is caught):
    Mixtral-8x7B ``train_4k`` on the 16x16 mesh: each "ok", rank 0's
    placed argument bytes equal to the JAX package's shard bytes for the
    cell (``DRYRUN_CELLS``), its collectives counted, the MoE cells with an
-   all-to-all; prints each record's H100 roofline terms.  Last, phase 7's Qwen3-8B step (2 layers,
+   all-to-all; prints each record's H100 roofline terms.  (e) Beside them,
+   ``python -m repro_torch.launch.dryrun --reduced-matrix``: the ten
+   reduced archs' train, prefill and decode steps on an 8-rank (4, 2)
+   fake mesh, each of which must trace on this machine's torch; each
+   status is printed.  Last, phase 7's Qwen3-8B step (2 layers,
    f32, B = 2, S = 2048) through the same counters on a one-rank fake mesh,
    with the roofline at the f32 CUDA-core rate: its counted FLOPs beside
    6·N·D, its bound beside phase 7's measured step and its peak estimate
@@ -215,7 +229,9 @@ kernel with their launches on the model path, their first; K2's and K3's
 launches on the design-space and serving paths and K7's on the model path
 beside their first main path's; K7 bf16's time at the model's shape;
 every kernel's launches on the training path, 0, and on the mesh path,
-K7 bf16's 38 and every other 0), the ``nvidia-smi`` line and
+K7 bf16's 38 and every other 0; L1 and L2 with their launches on the
+design-space path, their first, and the XLA program each computes as
+their "reference"), the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when no
 CUDA device is available or when the repository's ``src/`` is missing.
 """
@@ -256,7 +272,8 @@ PROFILER_OWN_EVENTS = ("Activity Buffer Request",)
 KERNELS = (
     "ws_activity_toggles", "ws_task_toggles", "strip_toggles", "operand_stream_toggles",
     "stream_toggles", "ws_gemm_tf32", "flash_attention_tf32", "attention_operand_planes",
-    "ws_gemm_tc", "gemm_operand_planes", "flash_attention_tc",
+    "ws_gemm_tc", "gemm_operand_planes", "flash_attention_tc", "ws_lane_toggles",
+    "stream_lane_toggles",
 )
 # The f32 routes (K6 also bf16 with K or N not a multiple of 8) and K7's
 # prep: timed at the main paths' shapes, launched on none of the profiling
@@ -267,21 +284,23 @@ OFF_PATH = ("ws_gemm_tf32", "flash_attention_tf32", "attention_operand_planes")
 TC_SASS = {"ws_gemm_tc_kernel": ("HGMMA", "IGMMA", "TF32"),
            "flash_attention_tc_kernel": ("HGMMA",),
            "flash_attention_tf32_kernel": ("HGMMA", "TF32")}
-# The redesigned toggle counters (source, kernel): their SASS is counted for
-# popcounts, shuffles (none: registers blocked in time, REDUX sums) and
-# 16-byte global loads (K5's lane groups, which K3 walks too), and ptxas
-# must report no spill.
+# The redesigned toggle counters and the lane counters (source, kernel):
+# their SASS is counted for popcounts, shuffles (none: registers blocked in
+# time, REDUX sums), votes and 16-byte global loads (K5's lane groups, which
+# K3 walks too), and ptxas must report no spill.
 INT_SASS = (("activity_profile", "ws_activity_toggles_kernel"),
             ("activity_batch", "ws_task_toggles_kernel"),
             ("toggle_count", "stream_toggles_kernel"),
-            ("toggle_count", "strip_toggles_kernel"))
+            ("toggle_count", "strip_toggles_kernel"),
+            ("lane_toggles", "ws_lane_toggles_kernel"),
+            ("lane_toggles", "stream_lane_toggles_kernel"))
 WIDE_LOADS = ("stream_toggles_kernel", "strip_toggles_kernel")
 # Kernels ptxas must report with no spill: the toggle counters and K7's f32
 # kernel (Q's small plane, P's two planes and both accumulators live in
 # registers).
 NO_SPILL = INT_SASS + (("flash_attention", "flash_attention_tf32_kernel"),)
 SASS_OPS = {"POPC": r"\bPOPC\b", "SHFL": r"\bSHFL\.", "LDG.E.128": r"\bLDG\.E(?:\.\w+)*\.128\b",
-            "REDUX": r"\bREDUX\b"}
+            "REDUX": r"\bREDUX\b", "VOTE": r"\bVOTE\b"}
 # Tolerances of the float kernels against their plain versions (f32 math
 # in both; only the order of the sums differs): K6 within GEMM_REL_TOL *
 # (|a| @ |w|) elementwise, since f32 rounding grows with the magnitudes
@@ -389,6 +408,26 @@ K2_EDGE_CASES = [
     (64, 32, 32, 32), (64, 32, 32, 33), (64, 32, 32, 40), (64, 32, 32, 48),
     (64, 32, 32, 64),
 ]
+# L1 and L2 at their edges (tests/test_torch_cuda.py L1_CASES, L2_CASES): L1 (M, K, N,
+# rows, b_v) with b_v on each of 1, 16, 32, 33, 37 and 64, M = 2 and 3 and
+# around one run of 15 transitions, K off rows and past one staged chunk of
+# 32 rows, N = 1, N off the 32-column groups and past one block's 128
+# columns; L2 (T, L) with T = 2 and 3, one lane, lanes past one block of
+# 256 threads, T past many 15-step chunks with a short last group, and a
+# stream of 10 M values, whose chunks are 30 steps, each on buses of 8, 16
+# and 33 bits (the sign lane); operands at the int16 extremes.
+LANE_EDGE_CASES = [
+    (40, 70, 33, 32, 1), (40, 70, 33, 32, 16), (40, 70, 33, 32, 32), (40, 70, 33, 32, 33),
+    (40, 70, 33, 32, 37), (40, 70, 33, 32, 64), (2, 40, 65, 32, 37), (3, 40, 65, 32, 37),
+    (16, 45, 1, 32, 37), (17, 100, 130, 48, 37), (46, 20, 300, 16, 33),
+]
+STREAM_LANE_EDGE_CASES = [(2, 1), (3, 7), (37, 300), (482, 33), (1000, 257), (2000, 5000)]
+# What the PyTorch lane passes that L1 and L2 replace cost on the six
+# Table-I layers (PERF.md, the card's earlier runs): the v pass 316.6-327.5
+# ms and 22350 launches a call; the design-space path's lane activities
+# 1453.9 ms of a 2034.9 ms wall, 16.9% busy.
+PLAIN_LANE_PASSES = ("v pass 316.6-327.5 ms and 22350 launches for the six layers; lane "
+                     "activities 1453.9 ms of the design-space path's 2034.9, 16.9% busy")
 K5_EDGE_CASES = [
     ((37, 1), 1), ((37, 3), 1), ((37, 5), 1), ((37, 4096), 1), ((37, 4097), 1),
     ((2, 1000), 0), ((3, 4096), 0), ((3, 7), 0), ((4, 600_000), 0),
@@ -498,6 +537,8 @@ def launch_counters() -> dict:
         flash_attention_tf32=(FA.flash_attention_fwd, "tf32_launches"),
         attention_operand_planes=(FA.flash_attention_fwd, "prep_launches"),
         flash_attention_tc=(FA.flash_attention_fwd, "tc_launches"),
+        ws_lane_toggles=(K.ws_lane_toggles, "launches"),
+        stream_lane_toggles=(K.stream_lane_toggles, "launches"),
     )
     return counters
 
@@ -1280,7 +1321,10 @@ def training_path_check(*, dev, smi) -> dict:
 # within MODEL_BF16_REL.  Then the dry run of three production cells (two
 # decode, one training) on the fake process group in subprocesses (the
 # torch of this machine), and phase 7's step through the dry run's counters beside its
-# measured time and memory.
+# measured time and memory; and, beside them, every reduced arch's train,
+# prefill and decode step on an 8-rank (4, 2) fake mesh
+# (``python -m repro_torch.launch.dryrun --reduced-matrix``), each of which
+# must trace on this torch.
 MESH_MOE_ARCH, MESH_MOE_LAYERS = "mixtral_8x7b", 2
 MESH_MOE_BATCH, MESH_MOE_SEQ = 2, 2048
 # (arch, shape, multi-pod): the per-device argument bytes of the JAX
@@ -1445,11 +1489,12 @@ def mesh_path_check(*, dev, smi, model, training) -> dict:
 
 
 def dryrun_check(*, smi, training) -> dict:
-    """Phase 8 (c) and (d): the dry run of DRYRUN_CELLS in subprocesses
+    """Phase 8 (c), (d) and (e): the dry run of DRYRUN_CELLS in subprocesses
     (status "ok", rank 0's placed argument bytes equal to the JAX
     package's shard bytes, collectives counted, an all-to-all in a MoE
-    cell), and phase 7's step through the same counters beside its measured
-    time and memory."""
+    cell), phase 7's step through the same counters beside its measured
+    time and memory, and the reduced matrix (every cell "ok"), all four
+    subprocesses and the matrix's run together."""
     import os
     import tempfile
 
@@ -1470,6 +1515,9 @@ def dryrun_check(*, smi, training) -> dict:
             [sys.executable, "-c", DRYRUN_PHASE7, str(TRAIN_LAYERS), str(TRAIN_BATCH),
              str(TRAIN_SEQ), repr(PHASE7_PEAK_FLOPS)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+        matrix_proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--reduced-matrix"],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
         for cell, proc in procs.items():
             out, err = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
             check(proc.returncode == 0, f"dry run {cell}: exit {proc.returncode}: {out[-2000:]} "
@@ -1480,6 +1528,25 @@ def dryrun_check(*, smi, training) -> dict:
         p7_out, p7_err = phase7.communicate(timeout=DRYRUN_TIMEOUT_S)
         check(phase7.returncode == 0, f"phase 7's step through the counters: {p7_err[-3000:]}")
         dry_s = time.perf_counter() - t0
+        m_out, m_err = matrix_proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+        matrix_s = time.perf_counter() - t0
+        check(bool(m_out.strip()), f"the reduced matrix printed nothing: {m_err[-3000:]}")
+        matrix = json.loads(m_out.strip().splitlines()[-1])
+
+    # (e) the reduced matrix on this machine's torch
+    import torch
+
+    failed = {cell: rec for cell, rec in matrix.items() if rec["status"] != "ok"}
+    for cell, rec in matrix.items():
+        print(f"  reduced matrix {cell}: {rec['status'][:200]}"
+              + (f" ({rec['seconds']:.2f} s)" if rec["status"] == "ok" else ""), flush=True)
+    for cell, rec in failed.items():
+        print(f"  reduced matrix {cell} traceback:\n{rec['traceback']}", file=sys.stderr, flush=True)
+    check(len(matrix) == 30 and not failed, f"reduced matrix on torch {torch.__version__}: "
+          f"{len(failed)} of {len(matrix)} cells did not trace: {sorted(failed)}")
+    print(f"  reduced matrix (10 archs x train, prefill, decode, 8-rank (4, 2) fake mesh, torch "
+          f"{torch.__version__}): all {len(matrix)} cells traced, {matrix_s:.1f} s beside the "
+          f"other dry runs", flush=True)
 
     for (arch, shape, pod), rec in records.items():
         check(rec["status"] == "ok", f"dry run {arch} {shape}: {rec.get('error')}")
@@ -2241,9 +2308,9 @@ def main() -> None:
 
     # -- phase 3c: the design-space path ---------------------------------------
     # Measured activities (K2 and K3 through run_profile_batch) -> lane-
-    # resolved profiles (PyTorch lane passes on the card) -> the design-space
-    # evaluator -> the segment-level layout evaluator (float64 programs on
-    # the card) -> Pareto set and floorplan verdict.
+    # resolved profiles (L1 and L2) -> the design-space evaluator -> the
+    # segment-level layout evaluator (float64 programs on the card) ->
+    # Pareto set and floorplan verdict.
     ds_ref = ref["design_space"]
     paper_act = BusActivity.paper_resnet50()
     ds_grid = DesignSpace(**ds_ref["axes"]).expand()
@@ -2251,18 +2318,34 @@ def main() -> None:
     lane_grid = DesignSpace(rows=(16, 32), cols=(32, 64), input_bits=(16,),
                             dataflows=("WS", "OS")).expand()
 
-    # 1. Lane-resolved profiles of the six layers on the paper's array.
+    # 1. Lane-resolved profiles of the six layers on the paper's array, each
+    # with the counts set to 0 just before it and read just after; then L1
+    # and L2 against their plain versions on the same operands, bit for bit.
+    def check_lanes(kernel, plain, args, what) -> None:
+        got = kernel(*args).tolist()
+        want_ = plain(*args).tolist()
+        note(kernel.__name__, got, want_)
+        check(got == want_, f"{kernel.__name__} {what}: kernel {got} plain {want_}")
+
     clear_profile_cache()
-    lane_ms = {}
+    lane_ms, lane_launches = {}, {}
     for (name, a, w), want in zip(operands, ref["layers"]):
         for dataflow in ("WS", "OS"):
             b_v = want[dataflow]["b_v"]
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
+            reset_counts()
             p, lane_ms[name, dataflow] = host_timed(lambda: profile_gemm(
                 a, w, rows, cols, OPERAND_BUS, b_v, dataflow=dataflow, backend="cuda",
                 lane_detail=True))
+            counts = read_counts()
+            lane_launches[name, dataflow] = {k: v for k, v in counts.items() if v}
+            want_launches = ({"stream_lane_toggles": 1, "ws_lane_toggles": 1} if dataflow == "WS"
+                             else {"stream_lane_toggles": 2})
+            check(lane_launches[name, dataflow] == want_launches,
+                  f"lanes {dataflow} {name}: launches {lane_launches[name, dataflow]}, want "
+                  f"{want_launches}")
             peak_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
             sums = [sum(p.h_lane_toggles), sum(p.v_lane_toggles), p.h_transitions, p.v_transitions]
             check(sums == want[dataflow]["counts"],
@@ -2277,9 +2360,40 @@ def main() -> None:
                                                      dataflow=dataflow, engine="torch")
             check(on_card_lanes == cpu_lanes,
                   f"lanes {dataflow} {name}: first k tile {on_card_lanes} CPU pass {cpu_lanes}")
-            print(f"  lanes {dataflow} {name}: lane pass {lane_ms[name, dataflow]:.2f} ms, peak "
-                  f"{peak_mib:.1f} MiB; sums = reference = {'K1' if dataflow == 'WS' else 'K4'}; "
-                  f"h lanes {p.h_lane_toggles[:4]}..., v lanes ...{p.v_lane_toggles[-6:]}")
+            a_t, w_t = on_card(a), on_card(w)
+            if dataflow == "WS":
+                check_lanes(K.ws_lane_toggles, K.ws_lane_toggles_plain, (a_t, w_t, rows, b_v),
+                            f"{name} b_v={b_v}")
+                check_lanes(K.stream_lane_toggles, K.stream_lane_toggles_plain,
+                            (a_t, OPERAND_BUS), f"{name} A b={OPERAND_BUS}")
+            else:
+                for x_t, bits, what in ((on_card(a.T), OPERAND_BUS, "A^T"), (w_t, b_v, "W")):
+                    check_lanes(K.stream_lane_toggles, K.stream_lane_toggles_plain, (x_t, bits),
+                                f"{name} OS {what} b={bits}")
+            print(f"  lanes {dataflow} {name}: lane profile {lane_ms[name, dataflow]:.2f} ms, "
+                  f"launches {lane_launches[name, dataflow]}, peak {peak_mib:.1f} MiB; sums = "
+                  f"reference = {'K1' if dataflow == 'WS' else 'K4'}; L1 and L2 = their plain "
+                  f"versions; h lanes {p.h_lane_toggles[:4]}..., v lanes ...{p.v_lane_toggles[-6:]}")
+    # L1 and L2 at their edges, operands at the int16 extremes
+    edge_rng = np.random.default_rng(5)
+    for m, k, n, rows_, b_v in LANE_EDGE_CASES:
+        a_t = on_card(edge_rng.choice([-32767, 32767, -1, 0, 1, 12345], size=(m, k)))
+        w_t = on_card(edge_rng.choice([-32767, 32767, -1, 0, 1, -23456], size=(k, n)))
+        check_lanes(K.ws_lane_toggles, K.ws_lane_toggles_plain, (a_t, w_t, rows_, b_v),
+                    f"edge {(m, k, n)} rows={rows_} b_v={b_v}")
+        check(sum(K.ws_lane_toggles(a_t, w_t, rows_, b_v).tolist())
+              == K.ws_activity_toggles(a_t, w_t, rows_, rows_, 16, b_v).tolist()[1],
+              f"L1 edge {(m, k, n)} rows={rows_} b_v={b_v}: lane sum is not K1's v count")
+    for t_len, lanes_ in STREAM_LANE_EDGE_CASES:
+        x_t = on_card(edge_rng.integers(-32767, 32768, size=(t_len, lanes_)))
+        for bits in (8, OPERAND_BUS, 33):
+            check_lanes(K.stream_lane_toggles, K.stream_lane_toggles_plain, (x_t, bits),
+                        f"edge {(t_len, lanes_)} b={bits}")
+    print(f"  L1 and L2 equal their plain versions on {len(LANE_EDGE_CASES)} and "
+          f"{3 * len(STREAM_LANE_EDGE_CASES)} edge cases (L1's lane sums = K1's v counts); the "
+          f"lane profiles launch {sum(sum(v.values()) for v in lane_launches.values())} kernels "
+          f"for the six layers' WS and OS profiles; the PyTorch lane passes they replace: "
+          f"{PLAIN_LANE_PASSES}", flush=True)
 
     def design_space_path() -> dict:
         """The path once, each step timed by ``host_timed``; its results,
@@ -2316,9 +2430,11 @@ def main() -> None:
         f"{label} {ms:.1f}" for label, ms in ds_out["ms"].items()) + f"); launches {counts}",
         flush=True)
     ds_launches = {}
-    for name in ("ws_task_toggles", "strip_toggles"):
+    for name in ("ws_task_toggles", "strip_toggles", "ws_lane_toggles", "stream_lane_toggles"):
         check(counts[name] > 0, f"{name} was not launched on the design-space path")
         ds_launches[name] = counts[name]
+    for name in ("ws_lane_toggles", "stream_lane_toggles"):
+        launches[name] = counts[name]  # their first main path
 
     # 2. The example's grid: activities, scheduler, evaluator, Pareto set.
     stats = ds_out["stats"]
@@ -2762,10 +2878,58 @@ def main() -> None:
               f"device {prep_device:.5f} ms ({100 * prep_bound / prep_device:.1f}% of the bound), "
               f"plain {prep_plain:.4f} ms, bound {prep_bound:.5f} ms ({prep_by})")
         del q, k_, v, k_rep, v_rep
+    # L1 and L2 at the lane profiles' shapes (the six layers, WS b_v = 37
+    # and b_h = 16; OS A^T and W at 16). Bound: bytes, or 32-bit integer
+    # ops: a multiply-add per partial sum and, per transition and 32-bit
+    # word of the bus, an XOR and a full adder (two logic ops) that folds it
+    # into the bit-sliced counters. No PyTorch call counts bits per lane.
+    def lane_bound_ms(n_bytes: int, sums: int, values: int, bits: int) -> tuple[float, str]:
+        terms = {"bytes": n_bytes / PEAK_BYTES_PER_S,
+                 "integer ops": (sums + 3 * values * -(-bits // 32)) / int_ops_per_s}
+        term = max(terms, key=terms.get)
+        return terms[term] * 1e3, term
+
+    print("  L1 and L2 (bound = max(bytes / 3.35 TB/s, 32-bit integer ops / the integer rate); a "
+          "partial sum is one multiply-add, a transition word an XOR and a full adder):")
+    for name, a, w in operands:
+        m, k = a.shape
+        n = w.shape[1]
+        a_t, w_t = on_card(a), on_card(w)
+        ms = median_ms(lambda: K.ws_lane_toggles(a_t, w_t, rows, WS_BUS_BITS), calls=20)
+        device, _ = device_ms(lambda: K.ws_lane_toggles(a_t, w_t, rows, WS_BUS_BITS))
+        plain = median_ms(lambda: K.ws_lane_toggles_plain(a_t, w_t, rows, WS_BUS_BITS), calls=1,
+                          bursts=3)
+        bound, by = lane_bound_ms(4 * (m * k + k * n) + 8 * WS_BUS_BITS, m * k * n,
+                                  (m - 1) * k * n, WS_BUS_BITS)
+        add("ws_lane_toggles", ms, plain, bound, by, device=device)
+        print(f"  L1 {name} {m}x{k}x{n} b_v={WS_BUS_BITS}: {ms:.4f} ms, device {device:.5f} ms, "
+              f"plain {plain:.3f} ms, bound {bound:.5f} ms ({by}; {100 * bound / device:.1f}% of "
+              f"the device time)")
+        for x_np, what in ((a, "WS A"), (np.ascontiguousarray(a.T), "OS A^T"), (w, "OS W")):
+            x_t = on_card(x_np)
+            t_len, lanes_ = x_np.shape
+            ms = median_ms(lambda: K.stream_lane_toggles(x_t, OPERAND_BUS), calls=20)
+            device, _ = device_ms(lambda: K.stream_lane_toggles(x_t, OPERAND_BUS))
+            plain = median_ms(lambda: K.stream_lane_toggles_plain(x_t, OPERAND_BUS), calls=2,
+                              bursts=3)
+            bound, by = lane_bound_ms(4 * t_len * lanes_ + 8 * OPERAND_BUS, 0,
+                                      (t_len - 1) * lanes_, OPERAND_BUS)
+            add("stream_lane_toggles", ms, plain, bound, by, device=device, part=what)
+            print(f"  L2 {name} {what} {t_len}x{lanes_}: {ms:.4f} ms a call, device "
+                  f"{device:.5f} ms, plain {plain:.3f} ms, bound {bound:.6f} ms ({by})")
+    for what, q in parts["stream_lane_toggles"].items():
+        print(f"  L2 {what}, all layers: {q['calls']} calls {q['ms']:.4f} ms, plain "
+              f"{q['plain_ms']:.3f} ms, bound {q['bound_ms']:.5f} ms")
+    t = totals["ws_lane_toggles"]
+    print(f"  L1, all layers: {t['ms']:.4f} ms, device {t['device_ms']:.5f} ms, plain "
+          f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.5f} ms; the PyTorch lane passes it "
+          f"replaced: {PLAIN_LANE_PASSES}", flush=True)
+
     # The design-space path's PyTorch programs (no hand-written kernel: the
-    # reference runs them as jitted XLA): time a call (CUDA events), the
-    # device kernels one call launches and their device time (torch.profiler),
-    # and its peak memory above what was allocated before it.
+    # reference runs them as jitted XLA), and the lane profiles whole (L1,
+    # L2, copies): time a call (CUDA events), the device kernels one call
+    # launches and their device time (torch.profiler), and its peak memory
+    # above what was allocated before it.
     def program_stats(fn, calls: int = 3) -> dict:
         ms = median_ms(fn, calls=calls, bursts=3)
         torch.cuda.synchronize()
@@ -2782,7 +2946,6 @@ def main() -> None:
             "peak_mib": (torch.cuda.max_memory_allocated() - base) / 2**20,
         }
 
-    lane_inputs = [(on_card(a), on_card(w)) for _, a, w in operands]
     fleet = DesignSpace(rows=(8, 16, 32, 64, 96, 128), cols=(8, 16, 32, 64, 128, 192, 256, 512),
                         input_bits=(4, 8, 16), dataflows=("WS", "OS"),
                         pe_area_um2=(400.0, 900.0, 1600.0, 2500.0)).expand()
@@ -2792,10 +2955,9 @@ def main() -> None:
     ds_a_h, ds_a_v = ds_out["a_h"], ds_out["a_v"]
     sweep_aspects = np.geomspace(1 / 16, 16, 64)
     programs = {
-        "lane h pass (6 layers, WS b_h=16)": lambda: [
-            AP._h_lane_toggles(a_t, OPERAND_BUS) for a_t, _ in lane_inputs],
-        "lane v pass (6 layers, WS b_v=37)": lambda: [
-            AP._v_lane_toggles(a_t, w_t, rows, WS_BUS_BITS) for a_t, w_t in lane_inputs],
+        "lane profiles (6 layers, WS b_h=16 b_v=37)": lambda: [
+            AP.profile_gemm_lane_toggles(a, w, rows, cols, OPERAND_BUS, WS_BUS_BITS)
+            for _, a, w in operands],
         "_evaluate_core (40 points x 3 layers)": lambda: evaluate_design_space(
             ds_grid, ds_a_h, ds_a_v, engine="cuda"),
         "_sweep_core (40 points x 64 aspects)": lambda: sweep_bus_power(
@@ -2822,7 +2984,6 @@ def main() -> None:
         print(f"  program {label}: {st_['ms']:.3f} ms a call, {st_['kernels']} kernel launches, "
               f"device {st_['device_ms']:.4f} ms, peak {st_['peak_mib']:.1f} MiB"
               + (f"; numpy engine {st_['numpy_ms']:.3f} ms" if "numpy_ms" in st_ else ""))
-    del lane_inputs
     fleet_label = next(label for label in programs if label.startswith("_coeff_eval_core"))
     cells = fleet.n_points * len(FLEET_FAMILIES)
     print(f"  layout evaluator, warm, fleet grid: {cells / ds_programs[fleet_label]['ms'] * 1e3:,.0f} "
@@ -2927,6 +3088,15 @@ def main() -> None:
             "src/repro_torch/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/kernel.py:112",
         ),
+        # no TPU kernel: the reference's XLA lane passes
+        "ws_lane_toggles": (
+            "src/repro_torch/csrc/lane_toggles.cu",
+            "src/repro/kernels/activity_profile/ops.py:513",
+        ),
+        "stream_lane_toggles": (
+            "src/repro_torch/csrc/lane_toggles.cu",
+            "src/repro/kernels/activity_profile/ops.py:486",
+        ),
     }
     kernels = []
     for name, t in totals.items():
@@ -2972,6 +3142,8 @@ def main() -> None:
             row["model_shape"] = model["k7"]
         if name in ds_launches:
             row["design_space_launches"] = ds_launches[name]
+        if name in ("ws_lane_toggles", "stream_lane_toggles"):
+            row["reference"] = "an XLA program (_v_lane_toggles_xla / _h_lane_toggles_xla), not a Pallas kernel"
         if name in serving["launches"]:
             row["serving_launches"] = serving["launches"][name]
         if name in parts:

@@ -50,6 +50,12 @@ SOURCES: dict[str, dict[str, tuple[list, type]]] = {
         # strips, out, num_strips, t1, lanes, bits, stream
         "strip_toggles": ([_P, _P, _I, _I, _I, _I, _P], _I),
     },
+    "lane_toggles": {
+        # a, w, out, m, k, n, rows, b_v, stream
+        "ws_lane_toggles": ([_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+        # x, out, t_len, lanes, bits, stream
+        "stream_lane_toggles": ([_P, _P, _L, _L, _I, _P], _I),
+    },
     "ws_matmul": {
         # a, w, planes, out, m, k, n, dtype (0 int8, 1 int16, 2 bf16, 3 f32), stream
         "ws_gemm_tc": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),

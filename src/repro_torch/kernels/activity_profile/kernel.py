@@ -1,6 +1,6 @@
 """Toggle-counting kernels of the activity profiler and their plain versions.
 
-Four kernels, written for Hopper.  Two per-GEMM kernels:
+Six kernels, written for Hopper.  Two per-GEMM kernels:
 
   * K1 ``ws_activity_toggles`` (``csrc/activity_profile.cu``) replaces
     ``activity_profile_pallas``
@@ -13,7 +13,7 @@ Four kernels, written for Hopper.  Two per-GEMM kernels:
     launches K5's kernel (``csrc/toggle_count.cu`` ``stream_toggles``) and
     keeps a count of its own.
 
-and two batched kernels of the profiling pipeline, over the stacked
+two batched kernels of the profiling pipeline, over the stacked
 seeded windows of ``repro_torch.kernels.activity_profile.batch``:
 
   * K2 ``ws_task_toggles`` (``csrc/activity_batch.cu``) replaces
@@ -24,6 +24,17 @@ seeded windows of ``repro_torch.kernels.activity_profile.batch``:
     horizontal pass).  A window is a (T1, L) stream whose row 0 seeds it,
     so K3 runs K5's column walk over each window
     (``csrc/toggle_count.cu`` ``strip_toggles``).
+
+and two per-lane kernels of the lane-resolved profile
+(``csrc/lane_toggles.cu``), whose reference is an XLA program, not a
+Pallas kernel:
+
+  * L1 ``ws_lane_toggles`` computes what ``_v_lane_toggles_xla``
+    (``src/repro/kernels/activity_profile/ops.py``) does: the toggles of
+    each bit lane of every weight-stationary partial-sum bus.
+  * L2 ``stream_lane_toggles`` computes what ``_h_lane_toggles_xla`` does:
+    the toggles of each bit lane of a (T, L) bundle of lane streams (the WS
+    horizontal pass and both OS operand streams).
 
 The note at the top of each source says what bounds each kernel on the
 card and what its design does about it.  Each wrapper takes int32 tensors
@@ -60,6 +71,12 @@ __all__ = [
     "ws_activity_toggles_plain",
     "operand_stream_toggles",
     "operand_stream_toggles_plain",
+    "LANE_BLOCK_ELEMENTS",
+    "compact_lanes",
+    "ws_lane_toggles",
+    "ws_lane_toggles_plain",
+    "stream_lane_toggles",
+    "stream_lane_toggles_plain",
 ]
 
 # Largest int64 partial-sum block a plain version materializes at once.
@@ -404,3 +421,120 @@ def strip_toggles(strips: torch.Tensor, bits: int) -> torch.Tensor:
 
 
 strip_toggles.launches = 0
+
+
+# int64 elements of one block of a lane pass's plain version (32 MiB): a
+# block of the WS partial-sum pass holds (block_t + 1, rows, N) partial
+# sums, and each of the few temporaries of its lane counts is the same size.
+LANE_BLOCK_ELEMENTS = 1 << 22
+
+
+def compact_lanes(bits: int) -> int:
+    """Lanes L2 counts on a ``bits``-wide bus: the min(bits, 32) value lanes
+    and, past 32 bits, one sign lane (the bits above 31 of a sign-extended
+    int32 all copy bit 31)."""
+    return min(bits, 32) + (1 if bits > 32 else 0)
+
+
+def _lane_counts(x: torch.Tensor, shifts) -> torch.Tensor:
+    """(len(shifts),) int64: the set bits of ``x`` at each shift, summed."""
+    return torch.stack([((x >> b) & 1).sum() for b in shifts])
+
+
+def stream_lane_toggles_plain(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """Plain PyTorch version of L2: (``compact_lanes(bits)``,) int64.
+
+    Time blocks of at most ``LANE_BLOCK_ELEMENTS`` values, each seeded with
+    the last row of the block before it; one shift, mask and sum a lane and
+    a block."""
+    t, lanes = x.shape
+    shifts = list(range(min(bits, 32))) + ([31] if bits > 32 else [])
+    out = torch.zeros(len(shifts), dtype=torch.int64, device=x.device)
+    block_t = max(1, LANE_BLOCK_ELEMENTS // max(lanes, 1))
+    for t0 in range(1, t, block_t):
+        seg = x[t0 - 1 : min(t0 + block_t, t)]
+        out += _lane_counts(seg[1:] ^ seg[:-1], shifts)
+    return out
+
+
+def stream_lane_toggles(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """L2: the toggles of each bit lane of the (T, L) int32 lane streams
+    ``x`` on a ``bits``-wide two's-complement bus, summed over the L lanes
+    and T - 1 transitions, as a (``compact_lanes(bits)``,) int64 tensor on
+    ``x``'s device: lanes 0 to min(bits, 32) - 1, then, past 32 bits, the
+    sign lane that every lane from 32 up repeats."""
+    _check_operand(x, "x", x.device)
+    _check_bits(bits)
+    if on_cpu(x, "stream_lane_toggles"):
+        return stream_lane_toggles_plain(x, bits)
+    t, lanes = x.shape
+    if t < 2 or lanes == 0:
+        return torch.zeros(compact_lanes(bits), dtype=torch.int64, device=x.device)
+    out = torch.empty(compact_lanes(bits), dtype=torch.int64, device=x.device)  # the C entry zeroes it
+    launch("lane_toggles", "stream_lane_toggles", x.device, x.data_ptr(), out.data_ptr(), t, lanes,
+           bits)
+    stream_lane_toggles.launches += 1
+    return out
+
+
+stream_lane_toggles.launches = 0
+
+
+def ws_lane_toggles_plain(a: torch.Tensor, w: torch.Tensor, rows: int, b_v: int) -> torch.Tensor:
+    """Plain PyTorch version of L1: (b_v,) int64 on the operands' device.
+
+    Column tiling regroups the partial-sum streams without changing them, so
+    each k strip's (T, rows, N) sums are counted whole, ``block_t`` time
+    steps at a time (``block_t * rows * N <= LANE_BLOCK_ELEMENTS``, or one
+    step where a row alone is larger); the strip's last int64 partial-sum
+    row carries from one block to the next.
+    """
+    m, k = a.shape
+    n = w.shape[1]
+    out = torch.zeros(b_v, dtype=torch.int64, device=a.device)
+    a64 = a.to(torch.int64)
+    w64 = w.to(torch.int64)
+    for k0 in range(0, k, rows):
+        a_strip = a64[:, k0 : k0 + rows]
+        w_strip = w64[k0 : k0 + rows]
+        block_t = max(1, LANE_BLOCK_ELEMENTS // (a_strip.shape[1] * n))
+        prev = torch.cumsum(a_strip[0, :, None] * w_strip, dim=0)
+        for t0 in range(1, m, block_t):
+            s = torch.cumsum(a_strip[t0 : t0 + block_t, :, None] * w_strip[None], dim=1)
+            lag = torch.cat([prev[None], s[:-1]])
+            out += _lane_counts(s ^ lag, range(b_v))
+            prev = s[-1]
+    return out
+
+
+def ws_lane_toggles(a: torch.Tensor, w: torch.Tensor, rows: int, b_v: int) -> torch.Tensor:
+    """L1: the toggles of each bit lane b < ``b_v`` of every
+    weight-stationary partial-sum bus of ``a @ w`` on a ``rows``-deep
+    array, as a (b_v,) int64 tensor on ``a``'s device.
+
+    ``a`` is (M, K) and ``w`` (K, N), int32 with int16-range values.  The
+    partial sums are int64; every (t, r, c) transition of each k strip of
+    ``rows`` reduction rows counts, the strip's first seeded at t = 0.
+    Column tiling does not change them, so no ``cols`` is taken.
+    """
+    _check_operand(a, "a", a.device)
+    _check_operand(w, "w", a.device)
+    if a.shape[1] != w.shape[0]:
+        raise ValueError(f"bad GEMM shapes {tuple(a.shape)} x {tuple(w.shape)}")
+    if rows < 1:
+        raise ValueError("rows must be positive")
+    _check_bits(b_v)
+    if on_cpu(a, "ws_lane_toggles"):
+        return ws_lane_toggles_plain(a, w, rows, b_v)
+    m, k = a.shape
+    n = w.shape[1]
+    if m < 2 or k == 0 or n == 0:
+        return torch.zeros(b_v, dtype=torch.int64, device=a.device)
+    out = torch.empty(b_v, dtype=torch.int64, device=a.device)  # the C entry zeroes it
+    launch("lane_toggles", "ws_lane_toggles", a.device,
+           a.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n, rows, b_v)
+    ws_lane_toggles.launches += 1
+    return out
+
+
+ws_lane_toggles.launches = 0

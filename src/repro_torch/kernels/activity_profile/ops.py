@@ -25,10 +25,13 @@ reference engine's contracts, kept so that ``backend="auto"`` resolves as it
 does there.
 
 ``profile_gemm_lane_toggles`` and ``stream_lane_toggle_totals`` resolve the
-same counts per bus bit lane.  Their passes are PyTorch programs on the
-engine's device, not kernels: the WS vertical pass walks each k strip in
-time blocks of bounded size, carrying the strip's last int64 partial-sum
-row from block to block, so the (T, R, C) tensor never exists.
+same counts per bus bit lane, through two more kernels: L1
+(``ws_lane_toggles``) for the WS partial-sum buses and L2
+(``stream_lane_toggles``) for the operand streams (the WS horizontal bus and
+both OS buses).  On ``"torch"`` their plain versions run: the WS pass walks
+each k strip in time blocks of bounded size, carrying the strip's last
+int64 partial-sum row from block to block, so the (T, R, C) tensor never
+exists.
 """
 
 from __future__ import annotations
@@ -41,8 +44,11 @@ import torch
 from repro_torch.core.switching import os_stream_counts
 from repro_torch.kernels._engine import ENGINES, engine_device
 from repro_torch.kernels.activity_profile.kernel import (
+    compact_lanes,
     operand_stream_toggles,
+    stream_lane_toggles,
     ws_activity_toggles,
+    ws_lane_toggles,
 )
 
 __all__ = [
@@ -66,10 +72,6 @@ INT16_SAFE_MAX = (1 << 15) - 1
 MAX_FUSED_K = 1 << 25
 MAX_FUSED_ROWS = 1 << 15
 MAX_FUSED_LANES = 1 << 25
-# int64 elements of one block of a lane pass (32 MiB): a block of the WS
-# vertical pass holds (block_t + 1, rows, N) partial sums, and each of the
-# few temporaries of its lane counts is the same size.
-LANE_BLOCK_ELEMENTS = 1 << 22
 
 
 @dataclasses.dataclass(frozen=True)
@@ -253,66 +255,12 @@ def profile_gemm_toggles(
 # XORed values; ``>>`` is arithmetic, so no value is read as unsigned.
 
 
-def _compact_lanes(bits: int) -> int:
-    """Lanes counted on the device: 32 value lanes + one shared sign lane."""
-    return min(bits, 32) + (1 if bits > 32 else 0)
-
-
 def _expand_sign_lanes(cnt, bits: int) -> np.ndarray:
     """(compact,) device counts -> (bits,) int64 per-lane totals."""
     cnt = np.asarray(cnt, np.int64)
     if bits <= 32:
         return cnt
     return np.concatenate([cnt[:32], np.repeat(cnt[32:33], bits - 32)])
-
-
-def _lane_counts(x: torch.Tensor, shifts) -> torch.Tensor:
-    """(len(shifts),) int64: the set bits of ``x`` at each shift, summed."""
-    return torch.stack([((x >> b) & 1).sum() for b in shifts])
-
-
-def _h_lane_toggles(x: torch.Tensor, bits: int) -> torch.Tensor:
-    """Per-lane toggles of the (T, L) int32 lane streams ``x`` on a
-    ``bits``-wide bus: (``_compact_lanes(bits)``,) int64 on ``x``'s device.
-
-    Time blocks of at most ``LANE_BLOCK_ELEMENTS`` values, each seeded with
-    the last row of the block before it."""
-    t, lanes = x.shape
-    shifts = list(range(min(bits, 32))) + ([31] if bits > 32 else [])
-    out = torch.zeros(len(shifts), dtype=torch.int64, device=x.device)
-    block_t = max(1, LANE_BLOCK_ELEMENTS // max(lanes, 1))
-    for t0 in range(1, t, block_t):
-        seg = x[t0 - 1 : min(t0 + block_t, t)]
-        out += _lane_counts(seg[1:] ^ seg[:-1], shifts)
-    return out
-
-
-def _v_lane_toggles(a: torch.Tensor, w: torch.Tensor, rows: int, b_v: int) -> torch.Tensor:
-    """Per-lane toggles of every WS partial-sum bus of ``a @ w`` (int32, on
-    one device) on a ``rows``-deep array: (b_v,) int64 on their device.
-
-    Column tiling regroups the partial-sum streams without changing them, so
-    each k strip's (T, rows, N) sums are counted whole, ``block_t`` time
-    steps at a time (``block_t * rows * N <= LANE_BLOCK_ELEMENTS``, or one
-    step where a row alone is larger); the strip's last int64 partial-sum
-    row carries from one block to the next.
-    """
-    m, k = a.shape
-    n = w.shape[1]
-    out = torch.zeros(b_v, dtype=torch.int64, device=a.device)
-    a64 = a.to(torch.int64)
-    w64 = w.to(torch.int64)
-    for k0 in range(0, k, rows):
-        a_strip = a64[:, k0 : k0 + rows]
-        w_strip = w64[k0 : k0 + rows]
-        block_t = max(1, LANE_BLOCK_ELEMENTS // (a_strip.shape[1] * n))
-        prev = torch.cumsum(a_strip[0, :, None] * w_strip, dim=0)
-        for t0 in range(1, m, block_t):
-            s = torch.cumsum(a_strip[t0 : t0 + block_t, :, None] * w_strip[None], dim=1)
-            lag = torch.cat([prev[None], s[:-1]])
-            out += _lane_counts(s ^ lag, range(b_v))
-            prev = s[-1]
-    return out
 
 
 def stream_lane_toggle_totals(x: np.ndarray, bits: int, *, engine: str = "cuda") -> np.ndarray:
@@ -335,7 +283,7 @@ def stream_lane_toggle_totals(x: np.ndarray, bits: int, *, engine: str = "cuda")
         )
     if lanes >= MAX_FUSED_LANES:
         raise ValueError("fused engine supports < 2^25 stream lanes")
-    compact = _h_lane_toggles(_to_device(x, device), bits)
+    compact = stream_lane_toggles(_to_device(x, device), bits)
     return _expand_sign_lanes(compact.cpu().numpy(), bits)
 
 
@@ -355,7 +303,9 @@ def profile_gemm_lane_toggles(
     The lane-resolved sibling of ``profile_gemm_toggles`` (same operand and
     dimension contracts, same tiling semantics under both dataflows); the
     lane sums equal the aggregate totals bit-for-bit.  ``engine="cuda"``
-    runs the lane passes on the current CUDA device, ``"torch"`` on the CPU.
+    launches L2 (the h lanes; both buses under OS) and L1 (the WS v lanes)
+    on the current CUDA device, ``"torch"`` runs their plain versions on
+    the CPU.
     """
     a = np.asarray(a)
     w = np.asarray(w)
@@ -404,10 +354,10 @@ def profile_gemm_lane_toggles(
         return LaneToggleCounts((0,) * b_h, (0,) * b_v, h_trans, v_trans)
     a_t = _to_device(a, device)
     w_t = _to_device(w, device)
-    counts = torch.cat([_h_lane_toggles(a_t, b_h), _v_lane_toggles(a_t, w_t, rows, b_v)])
+    counts = torch.cat([stream_lane_toggles(a_t, b_h), ws_lane_toggles(a_t, w_t, rows, b_v)])
     counts = counts.cpu().numpy()
-    h_lanes = n_tiles * _expand_sign_lanes(counts[: _compact_lanes(b_h)], b_h)
-    v_lanes = counts[_compact_lanes(b_h) :]
+    h_lanes = n_tiles * _expand_sign_lanes(counts[: compact_lanes(b_h)], b_h)
+    v_lanes = counts[compact_lanes(b_h) :]
     return LaneToggleCounts(
         tuple(int(v) for v in h_lanes),
         tuple(int(v) for v in v_lanes),

@@ -50,9 +50,23 @@ writes the KV cache at position 0, whose slot rank 0 holds on every mesh,
 so that the counted rank does the write (the reference's position is a
 traced scalar; the cost does not depend on it).
 
+Where DTensor lacks a path that the reference's partitioner has, the
+models take their own (``parallel.sharding.local_blocks``: each rank on
+its own block through ``local_map``): xLSTM's gates run ``F.logsigmoid``
+so (no sharding rule for ``aten.log_sigmoid_backward``), as do its mLSTM
+and sLSTM recurrences on (batch, head) blocks (the sLSTM's S steps are
+then plain tensor ops, not DTensor dispatches) and Mamba's causal
+convolution on (batch, channel) blocks; MusicGen's codebook head is one
+product per codebook, stacked; a partial sum is reduced before Mamba adds
+its ``dt`` bias.
+``reduced_matrix`` (``--reduced-matrix``) traces every reduced arch's
+train, prefill and decode step on an 8-rank (4, 2) fake mesh, which this
+torch must take whole.
+
 Usage:
   python -m repro_torch.launch.dryrun --arch yi_6b --shape train_4k [--multi-pod]
   python -m repro_torch.launch.dryrun --all [--multi-pod] [--out results/dryrun]
+  python -m repro_torch.launch.dryrun --reduced-matrix
 """
 
 from __future__ import annotations
@@ -71,14 +85,14 @@ import torch
 
 from repro_torch.analysis.hlo import TraceCounter
 from repro_torch.analysis.roofline import model_flops_for, roofline
-from repro_torch.configs.registry import SHAPES, all_cells, get_arch
+from repro_torch.configs.registry import ARCH_IDS, SHAPES, ShapeSpec, all_cells, get_arch
 from repro_torch.launch import specs as specs_lib
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.mesh import make_mesh, make_production_mesh
 from repro_torch.launch.steps import step_for_shape
 from repro_torch.optim import adamw
 from repro_torch.parallel import sharding as sh
 
-__all__ = ["fake_world", "measure_cell", "run_cell", "trace_cell"]
+__all__ = ["fake_world", "measure_cell", "reduced_matrix", "run_cell", "trace_cell"]
 
 _ORDER = {"train": ("state", "batch"), "prefill": ("params", "batch"),
           "decode": ("params", "cache", "batch")}
@@ -290,12 +304,36 @@ def run_cell(
     return record
 
 
+def reduced_matrix(archs=ARCH_IDS) -> dict:
+    """Trace each reduced arch (bf16) at ``ShapeSpec("t", kind, 64, 8)`` for
+    every step kind on a (4, 2) ("data", "model") mesh of an 8-rank fake
+    process group: {"arch/kind": {"status": "ok", "flops", "seconds"}, or
+    {"status": the error, "traceback"}}."""
+    out = {}
+    with fake_world(8):
+        mesh = make_mesh((4, 2), ("data", "model"), device_type="cuda")
+        for arch in archs:
+            cfg = get_arch(arch).reduced().with_dtypes("bfloat16", "bfloat16")
+            for kind in _ORDER:
+                try:
+                    traced = trace_cell(cfg, ShapeSpec("t", kind, 64, 8), mesh)
+                    out[f"{arch}/{kind}"] = {"status": "ok", "flops": traced.counts["flops"],
+                                             "seconds": traced.seconds}
+                except Exception as e:  # recorded: each cell is a case of its own
+                    out[f"{arch}/{kind}"] = {"status": f"{type(e).__name__}: {e}",
+                                             "traceback": traceback.format_exc()[-4000:]}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch")
     ap.add_argument("--shape")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--all", action="store_true")
+    ap.add_argument("--reduced-matrix", action="store_true",
+                    help="trace every reduced arch x step kind on an 8-rank (4, 2) fake mesh; "
+                    "prints one line a cell, then the results as one JSON line")
     ap.add_argument("--out", default="results/dryrun")
     ap.add_argument("--grad-compression", default=None)
     ap.add_argument("--remat", default=None)
@@ -314,6 +352,13 @@ def main() -> int:
     args = ap.parse_args()
     # DTensor warns on every multi-step redistribution; the counts say it
     logging.getLogger("torch.distributed.tensor").setLevel(logging.ERROR)
+    if args.reduced_matrix:
+        matrix = reduced_matrix()
+        for cell, rec in matrix.items():
+            print(f"{'OK  ' if rec['status'] == 'ok' else 'FAIL'} {cell:32s} {rec['status'][:300]}",
+                  flush=True)
+        print(json.dumps(matrix))
+        return 0 if all(rec["status"] == "ok" for rec in matrix.values()) else 1
     cfg_overrides = json.loads(args.cfg) if args.cfg else None
     rules_override = None
     if args.rules:

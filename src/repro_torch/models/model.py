@@ -290,9 +290,16 @@ def _embed(cfg, params, tokens, dtype):
     return x.to(dtype)
 
 
+def _codebook_logits(x, head):
+    """(..., D) @ (K, D, V) -> (..., K, V): one product per codebook,
+    stacked.  An einsum would view the codebook and vocab dims as one,
+    which DTensor's older releases refuse where the vocab is sharded."""
+    return torch.stack([x @ head[k] for k in range(head.shape[0])], dim=-2)
+
+
 def _head(cfg, params, x):
     if cfg.num_codebooks > 1:
-        return torch.einsum("...d,kdv->...kv", x, params["head"].to(x.dtype))
+        return _codebook_logits(x, params["head"].to(x.dtype))
     return x @ params["head"].to(x.dtype)
 
 
@@ -537,7 +544,7 @@ def _vocab_parallel_label_logit(logits, labels):
 def _ce_terms(cfg, head, x_chunk, labels_chunk) -> torch.Tensor:
     """Sum over the chunk of (logsumexp - label_logit). x_chunk: (B, c, D)."""
     if cfg.num_codebooks > 1:
-        logits = torch.einsum("...d,kdv->...kv", x_chunk, head.to(x_chunk.dtype))
+        logits = _codebook_logits(x_chunk, head.to(x_chunk.dtype))
     else:
         logits = x_chunk @ head.to(x_chunk.dtype)
     return _nll(logits, labels_chunk).sum()

@@ -21,7 +21,7 @@ from repro_torch.models.layers import (
     param_device,
     zeros_param,
 )
-from repro_torch.parallel.sharding import shard_hint
+from repro_torch.parallel.sharding import is_dtensor, local_blocks, reduce_partial, shard_hint
 
 __all__ = ["Mamba", "mamba_apply", "mamba_cache_init", "mamba_decode"]
 
@@ -56,7 +56,19 @@ class Mamba(ParamBlock):
 
 def _causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """x: (B, S, di), w: (K, di): causal depthwise 1-D convolution as K
-    shifted, scaled copies summed in order."""
+    shifted, scaled copies summed in order.
+
+    On DTensors each rank convolves its own (batch, channel) block through
+    ``local_map``, the sequence gathered first: DTensor's older releases
+    cannot redistribute the padded sequence.  The weights follow the
+    channel shards; where the batch is sharded their gradients are partial
+    sums."""
+    if not is_dtensor(x):
+        return _conv_local(x, w, b)
+    return local_blocks(_conv_local, [x], [w, b], keep=(0, 2), w_dims=({2: 1}, {2: 0}))
+
+
+def _conv_local(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     k = w.shape[0]
     xp = F.pad(x, (0, 0, k - 1, 0))
     out = torch.zeros_like(x)
@@ -99,7 +111,8 @@ def mamba_apply(p, x, cfg, chunk: int | None = None) -> torch.Tensor:
     dt_low = dbc[..., :dtr]
     b_ssm = dbc[..., dtr:dtr + n].float()  # (B, S, N)
     c_ssm = dbc[..., dtr + n:].float()
-    dt = F.softplus((dt_low @ p["dt_proj"].to(dtype)).float() + p["dt_bias"].float())  # (B, S, di)
+    dt_raw = reduce_partial(dt_low @ p["dt_proj"].to(dtype)).float()
+    dt = F.softplus(dt_raw + p["dt_bias"].float())  # (B, S, di)
     a_mat = -torch.exp(p["A_log"].float())  # (di, N)
 
     if s % chunk:
@@ -154,7 +167,8 @@ def mamba_decode(p, x, cache, cfg) -> tuple[torch.Tensor, dict]:
     dt_low = dbc[..., :dtr]
     b_ssm = dbc[..., dtr:dtr + n].float()
     c_ssm = dbc[..., dtr + n:].float()
-    dt = F.softplus((dt_low @ p["dt_proj"].to(dtype)).float() + p["dt_bias"].float())  # (B, di)
+    dt_raw = reduce_partial(dt_low @ p["dt_proj"].to(dtype)).float()
+    dt = F.softplus(dt_raw + p["dt_bias"].float())  # (B, di)
     a_mat = -torch.exp(p["A_log"].float())
     decay = torch.exp(dt[..., None] * a_mat)  # (B, di, N)
     h = decay * cache["ssm"] + (dt * x_act.float())[..., None] * b_ssm[:, None, :]

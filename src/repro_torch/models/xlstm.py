@@ -18,11 +18,13 @@ Python loop.  Decode writes both caches in place.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import ParamBlock, dense_param, ones_param, param_device, zeros_param
-from repro_torch.parallel.sharding import shard_hint
+from repro_torch.parallel.sharding import is_dtensor, local_blocks, shard_hint
 
 __all__ = [
     "MLstm",
@@ -95,6 +97,31 @@ def _mlstm_chunk(q, k, v, li, lf, c0, n0):
     return h, c1, n1
 
 
+def _mlstm_scan(q, k, v, li, lf, *, chunk):
+    """The chunkwise-parallel recurrence over the sequence from zero state:
+    q/k/v (B, H, S, dh), li/lf (B, H, S) -> h (B, H, S, dh)."""
+    b, hh, s, dh = q.shape
+    c0 = torch.zeros((b, hh, dh, dh), dtype=torch.float32, device=q.device)
+    n0 = torch.zeros((b, hh, dh), dtype=torch.float32, device=q.device)
+    hs = []
+    for t0 in range(0, s, chunk):
+        sl = slice(t0, t0 + chunk)
+        h_c, c0, n0 = _mlstm_chunk(q[:, :, sl], k[:, :, sl], v[:, :, sl], li[..., sl],
+                                   lf[..., sl], c0, n0)
+        hs.append(h_c)
+    return torch.cat(hs, dim=2)
+
+
+def _logsigmoid(x):
+    """``F.logsigmoid``; on a DTensor each rank takes its own block (a
+    ``Partial`` sum reduced first), since DTensor has no sharding rule for
+    ``aten.log_sigmoid_backward``.  The same kernel runs either way, so the
+    sharded gates keep the unsharded bits."""
+    if not is_dtensor(x):
+        return F.logsigmoid(x)
+    return local_blocks(F.logsigmoid, [x], keep=range(x.ndim))
+
+
 def _rms(x, w, eps=1e-6):
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
@@ -116,20 +143,18 @@ def mlstm_apply(p, x, cfg) -> torch.Tensor:
     inner_h = inner.reshape(b, s, hh, dh).transpose(1, 2)  # (B, H, S, dh)
     q, k, v = (torch.einsum("bhsd,hde->bhse", inner_h, p[name].to(dtype)).float()
                for name in ("wq", "wk", "wv"))
-    li = F.logsigmoid(inner @ p["w_igate"].to(dtype)).float().transpose(1, 2)  # (B, H, S)
-    lf = F.logsigmoid(inner @ p["w_fgate"].to(dtype) + p["b_fgate"].to(dtype)).float()
+    li = _logsigmoid(inner @ p["w_igate"].to(dtype)).float().transpose(1, 2)  # (B, H, S)
+    lf = _logsigmoid(inner @ p["w_fgate"].to(dtype) + p["b_fgate"].to(dtype)).float()
     lf = lf.transpose(1, 2)
 
-    c0 = torch.zeros((b, hh, dh, dh), dtype=torch.float32, device=x.device)
-    n0 = torch.zeros((b, hh, dh), dtype=torch.float32, device=x.device)
-    hs = []
-    for t0 in range(0, s, chunk):
-        sl = slice(t0, t0 + chunk)
-        h_c, c0, n0 = _mlstm_chunk(q[:, :, sl], k[:, :, sl], v[:, :, sl], li[..., sl],
-                                   lf[..., sl], c0, n0)
-        hs.append(h_c)
-    h = torch.cat(hs, dim=2)
-
+    scan = functools.partial(_mlstm_scan, chunk=chunk)
+    if is_dtensor(q):
+        # (batch, head) blocks are independent: each rank runs its own, so no
+        # op meets DTensor's propagation (2.11's cannot flatten the sharded
+        # (B, H) dims that the recurrence's batched products view as one)
+        h = local_blocks(scan, [q, k, v, li, lf], keep=(0, 1))
+    else:
+        h = scan(q, k, v, li, lf)
     h = h.transpose(1, 2).reshape(b, s, di).to(dtype)
     h = _rms(h, p["out_norm"])
     h = h * F.silu(z)
@@ -226,6 +251,22 @@ def _slstm_cell(pre, rec, c, n, m):
     return c_new, n_new, h_new, m_new
 
 
+def _slstm_scan(*pre_r):
+    """The sLSTM recurrence from zero state: the gates' input parts (B, S,
+    H, dh) and then their recurrent matrices (H, dh, dh), both in
+    ``_GATES`` order -> h (B, S, H, dh)."""
+    pre = dict(zip(_GATES, pre_r[:len(_GATES)]))
+    r = dict(zip(_GATES, pre_r[len(_GATES):]))
+    b, _, hh, dh = pre["z"].shape
+    c = n = h = m = torch.zeros((b, hh, dh), dtype=torch.float32, device=pre["z"].device)
+    hs = []
+    for t in range(pre["z"].shape[1]):
+        rec = {g: torch.einsum("bhd,hde->bhe", h, r[g]) for g in _GATES}
+        c, n, h, m = _slstm_cell({g: pre[g][:, t] for g in _GATES}, rec, c, n, m)
+        hs.append(h)
+    return torch.stack(hs, dim=1)
+
+
 def _slstm_ffn(p, h, dtype):
     h = _rms(h, p["out_norm"])
     return F.gelu(h @ p["w_ff_gate"].to(dtype), approximate="tanh") @ p["w_ff_down"].to(dtype)
@@ -238,16 +279,17 @@ def slstm_apply(p, x, cfg) -> torch.Tensor:
     dh = d // hh
     dtype = x.dtype
     # the gates' input contributions for all steps: (B, S, H, dh) each
-    pre = {g: (x @ p[f"w_{g}"].to(dtype) + p[f"b_{g}"].to(dtype)).float().reshape(b, s, hh, dh)
-           for g in _GATES}
-    r = {g: p[f"r_{g}"].float() for g in _GATES}
-    c = n = h = m = torch.zeros((b, hh, dh), dtype=torch.float32, device=x.device)
-    hs = []
-    for t in range(s):
-        rec = {g: torch.einsum("bhd,hde->bhe", h, r[g]) for g in _GATES}
-        c, n, h, m = _slstm_cell({g: pre[g][:, t] for g in _GATES}, rec, c, n, m)
-        hs.append(h)
-    h = torch.stack(hs, dim=1).reshape(b, s, d).to(dtype)
+    pre = [(x @ p[f"w_{g}"].to(dtype) + p[f"b_{g}"].to(dtype)).float().reshape(b, s, hh, dh)
+           for g in _GATES]
+    r = [p[f"r_{g}"].float() for g in _GATES]
+    if is_dtensor(pre[0]):
+        # (batch, head) blocks are independent and each head's recurrent
+        # matrix follows its head: each rank walks its own block, so the
+        # S sequential steps are plain tensor ops, not DTensor dispatches
+        h = local_blocks(_slstm_scan, pre, r, keep=(0, 2), w_dims=({2: 0},) * len(r))
+    else:
+        h = _slstm_scan(*pre, *r)
+    h = h.reshape(b, s, d).to(dtype)
     return _slstm_ffn(p, h, dtype)
 
 

@@ -56,9 +56,11 @@ __all__ = [
     "active_mesh",
     "from_local",
     "is_dtensor",
+    "local_blocks",
     "mesh_sizes",
     "place",
     "redistribute",
+    "reduce_partial",
     "replicated",
     "shard_hint",
     "sharding_for",
@@ -367,6 +369,54 @@ def shard_hint(x, *axes: str | None):
     if tuple(x.placements) == placements:
         return x
     return redistribute(x, placements)
+
+
+def reduce_partial(x):
+    """``x`` with its pending partial sums reduced: a DTensor's ``Partial``
+    placements become ``Replicate`` (an all-reduce); anything else comes
+    back unchanged.  DTensor's older releases cannot add a partial sum to a
+    sharded tensor (they would make the shard partial)."""
+    if not is_dtensor(x) or not any(p.is_partial() for p in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    return redistribute(x, [Replicate() if p.is_partial() else p for p in x.placements])
+
+
+def local_blocks(fn, xs, ws=(), *, keep, w_dims=()):
+    """``fn(*xs, *ws)`` with each rank on its own block, through ``local_map``,
+    where DTensor's sharding propagation has no path for ``fn``'s ops.
+
+    ``xs`` are activations that share ``xs[0]``'s layout (DTensors); ``keep``
+    names their dims along which ``fn`` is independent: a mesh dim that
+    shards one of those keeps it, any other placement is gathered (a
+    ``Partial`` sum reduced).  ``ws`` are weights, and ``w_dims[j]`` maps a
+    kept activation dim to the dim of ``ws[j]`` that follows it; on a mesh
+    dim that shards a kept dim the weight does not follow, the weight is
+    whole and its gradient is a partial sum.  ``fn``'s one output has
+    ``xs[0]``'s layout."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    # lists: local_map reads a tuple as one placement per output
+    x_pl, w_pl, w_grad = [], [[] for _ in ws], [[] for _ in ws]
+    for p in xs[0].placements:
+        kept = isinstance(p, Shard) and p.dim in keep
+        x_pl.append(p if kept else Replicate())
+        for j in range(len(ws)):
+            dims = w_dims[j]
+            if kept and p.dim in dims:
+                w_pl[j].append(Shard(dims[p.dim]))
+                w_grad[j].append(Shard(dims[p.dim]))
+            else:
+                w_pl[j].append(Replicate())
+                w_grad[j].append(Partial() if kept else Replicate())
+    mesh = xs[0].device_mesh
+    xs = [redistribute(x, x_pl) for x in xs]
+    ws = [redistribute(w if is_dtensor(w) else replicated(w, mesh), pl) for w, pl in zip(ws, w_pl)]
+    return local_map(fn, out_placements=x_pl, in_placements=(x_pl,) * len(xs) + tuple(w_pl),
+                     in_grad_placements=(x_pl,) * len(xs) + tuple(w_grad),
+                     device_mesh=mesh)(*xs, *ws)
 
 
 def is_dtensor(x) -> bool:

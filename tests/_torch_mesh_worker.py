@@ -11,7 +11,9 @@ Each rank places the same seeded parameters and batch on the mesh
    forward (``inference_mode``, parameters placed with gradients on) on
    both attention routes; the same train step of the mixtral reduced arch,
    whose MoE takes its sharded branch (capacity factor E / k: no token
-   dropped); rank 0 writes the relative L2 distance of the loss, each
+   dropped), and of the xlstm reduced arch in float64, whose gates'
+   ``F.logsigmoid`` and mLSTM recurrence run through ``local_map``; rank 0
+   writes the relative L2 distance of the loss, each
    gradient leaf, each updated parameter and the logits from the same
    computation unsharded;
 2. the mixtral reduced MoE layer (``blocks.moe_apply``) on the inputs of
@@ -129,6 +131,12 @@ def _rank(rank: int, store_path: str, npz_path: str, out_path: str) -> None:
         finally:
             blocks._token_partition = partition
         result["moe_train"]["token_partitions"] = partitions
+        # xLSTM's gates and mLSTM recurrence through local_map on the mesh, in
+        # float64: the f32 step's own gradients lie up to 1.6e-5 (relative
+        # L2) from float64's, above TRAIN_TOL, so two f32 orders of the same
+        # sums could not be told from a fault at that tolerance
+        result["xlstm_train"] = train_errors(
+            get_arch("xlstm_1p3b").reduced().with_dtypes("float64", "float64"))
 
         # the serving forward (inference mode) on parameters placed with
         # gradients on, on both attention routes (K7's plain version here)

@@ -812,6 +812,48 @@ def test_lane_passes_match_the_cpu_pass(card, case):
     assert got.totals() == profile_gemm_toggles(a, w, rows, cols, b_h, b_v, engine="cuda", **kw)
 
 
+# L1 and L2 against their plain versions at their edges (chip_smoke.py's
+# LANE_EDGE_CASES): L1 (M, K, N, rows, b_v) on every bus width class, M = 2
+# and 3, K off rows and past a staged chunk, N = 1 and past one block's 128
+# columns; L2 (T, L) past one block of 256 lanes, over many 15-step chunks
+# and, at 10 M values, 30-step ones, on buses of 8, 16 and 33 bits.
+L1_CASES = [(40, 70, 33, 32, 1), (40, 70, 33, 32, 16), (40, 70, 33, 32, 32),
+            (40, 70, 33, 32, 33), (40, 70, 33, 32, 37), (40, 70, 33, 32, 64),
+            (2, 40, 65, 32, 37), (3, 40, 65, 32, 37), (16, 45, 1, 32, 37),
+            (17, 100, 130, 48, 37), (46, 20, 300, 16, 33), (3136, 256, 64, 32, 37)]
+L2_CASES = [((2, 1), 8), ((3, 7), 16), ((37, 300), 33), ((482, 33), 16), ((1000, 257), 8),
+            ((3136, 256), 16), ((2000, 5000), 33)]
+
+
+@pytest.mark.parametrize("case", L1_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_ws_lane_kernel_matches_plain(card, case):
+    m, k, n, rows, b_v = case
+    rng = np.random.default_rng(list(case))
+    a = torch.from_numpy(rng.choice([-32767, 32767, -1, 0, 1, 12345], size=(m, k)).astype(np.int32))
+    w = torch.from_numpy(rng.choice([-32767, 32767, -1, 0, 1, -23456], size=(k, n)).astype(np.int32))
+    a, w = a.to(card), w.to(card)
+    before = K.ws_lane_toggles.launches
+    got = K.ws_lane_toggles(a, w, rows, b_v)
+    torch.cuda.synchronize()
+    assert K.ws_lane_toggles.launches == before + 1
+    assert got.tolist() == K.ws_lane_toggles_plain(a, w, rows, b_v).tolist()
+    assert sum(got.tolist()) == K.ws_activity_toggles(a, w, rows, rows, 16, b_v).tolist()[1]
+
+
+@pytest.mark.parametrize("case", L2_CASES, ids=lambda c: f"{c[0][0]}x{c[0][1]}-{c[1]}")
+def test_stream_lane_kernel_matches_plain(card, case):
+    shape, bits = case
+    rng = np.random.default_rng(list(shape) + [bits])
+    x = torch.from_numpy(rng.integers(-32767, 32768, size=shape).astype(np.int32)).to(card)
+    before = K.stream_lane_toggles.launches
+    got = K.stream_lane_toggles(x, bits)
+    torch.cuda.synchronize()
+    assert K.stream_lane_toggles.launches == before + 1
+    assert got.tolist() == K.stream_lane_toggles_plain(x, bits).tolist()
+    assert sum(got.tolist()[:min(bits, 32)]) + (bits - 32) * got.tolist()[-1] * (bits > 32) == int(
+        K.operand_stream_toggles(x, bits).item())
+
+
 def _assert_engines_agree(got, want, fields):
     for name in fields:
         g, w = np.asarray(getattr(got, name), float), np.asarray(getattr(want, name), float)

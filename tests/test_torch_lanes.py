@@ -8,6 +8,7 @@ The port's own cases mirror ``tests/test_switching.py``'s lane tests and
 ``tests/test_profile_store.py::test_store_roundtrip_lane_detail``.
 """
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -31,6 +32,7 @@ from repro_torch.core.switching import (
 )
 from repro_torch.core.workloads import ConvLayer, profile_conv_layer
 from repro_torch.kernels import _engine
+from repro_torch.kernels.activity_profile import kernel as K
 from repro_torch.kernels.activity_profile import ops
 
 
@@ -151,7 +153,12 @@ def test_store_roundtrip_lane_detail(tmp_path):
 
 # (M, K, N, rows, cols, b_h, b_v, dataflow): T = 2, K below rows, N off the
 # column groups, b_v of 33-64 (the high lanes of the int64 sums), b_h past
-# 32 (the sign lane repeated), b_v below 16 (lanes truncated).
+# 32 (the sign lane repeated), b_v below 16 (lanes truncated).  Then the
+# edges of L1 and L2 (chip_smoke.py's LANE_EDGE_CASES): b_v of 1, 16, 32
+# and 37 (one run of 15 transitions and a partial one), M = 3, K off rows
+# and past one staged chunk of 32 rows, N = 1, N past one block's 128
+# columns, b_h of 8 and 33, and an operand stream wider than one L2 block
+# of 256 lanes.
 EDGES = [
     (2, 5, 3, 8, 8, 16, 37, "WS"),
     (19, 5, 7, 8, 4, 16, 33, "WS"),
@@ -160,6 +167,12 @@ EDGES = [
     (12, 9, 9, 4, 4, 8, 12, "WS"),
     (2, 3, 4, 8, 8, 16, 16, "OS"),
     (30, 25, 40, 8, 16, 33, 50, "OS"),
+    (3, 20, 1, 8, 8, 8, 1, "WS"),
+    (17, 40, 130, 16, 32, 16, 16, "WS"),
+    (31, 70, 33, 48, 32, 33, 32, "WS"),
+    (46, 45, 65, 32, 32, 16, 37, "WS"),
+    (3, 7, 300, 8, 8, 8, 1, "OS"),
+    (16, 50, 33, 8, 8, 16, 37, "OS"),
 ]
 
 
@@ -182,21 +195,29 @@ def test_lane_passes_carry_across_blocks(monkeypatch):
     a, w = _rand_gemm(seed=2, m=41, k=19, n=11)
     a[1::3] *= -1
     whole = ops.profile_gemm_lane_toggles(a, w, 8, 4, 16, 37, engine="torch")
-    monkeypatch.setattr(ops, "LANE_BLOCK_ELEMENTS", 5)
+    monkeypatch.setattr(K, "LANE_BLOCK_ELEMENTS", 5)
     assert ops.profile_gemm_lane_toggles(a, w, 8, 4, 16, 37, engine="torch") == whole
     oracle = profile_gemm(a, w, 8, 4, 16, 37, backend="numpy", lane_detail=True, use_cache=False)
     assert whole.h_lanes == oracle.h_lane_toggles
     assert whole.v_lanes == oracle.v_lane_toggles
 
 
-@pytest.mark.parametrize("bits", [1, 12, 32, 33, 64])
-def test_stream_lane_totals_match_reference(bits):
-    x = np.random.default_rng(bits).integers(-32767, 32768, (37, 6))
+# (bits, (T, L)): every bus width on a (37, 6) stream, then L2's edges:
+# T = 2 and 3, one lane, many 15-step chunks and a short last group, lanes
+# past one block of 256 threads.
+STREAM_CASES = [pytest.param(bits, (37, 6), id=str(bits)) for bits in (1, 12, 32, 33, 64, 8, 16)]
+STREAM_CASES += [pytest.param(bits, shape, id=f"{bits}-{shape[0]}x{shape[1]}")
+                 for shape in ((2, 1), (3, 300), (482, 33)) for bits in (8, 16, 33)]
+
+
+@pytest.mark.parametrize("bits,shape", STREAM_CASES)
+def test_stream_lane_totals_match_reference(bits, shape):
+    x = np.random.default_rng(bits).integers(-32767, 32768, shape)
     got = ops.stream_lane_toggle_totals(x, bits, engine="torch")
     assert np.array_equal(got, ref_ops.stream_lane_toggle_totals(x, bits))
     assert got.sum() == ops.stream_toggle_total(x, bits, engine="torch")
-    assert ops._compact_lanes(bits) == ref_ops._compact_lanes(bits)
-    compact = np.arange(ops._compact_lanes(bits))
+    assert K.compact_lanes(bits) == ref_ops._compact_lanes(bits)
+    compact = np.arange(K.compact_lanes(bits))
     assert np.array_equal(ops._expand_sign_lanes(compact, bits), ref_ops._expand_sign_lanes(compact, bits))
 
 
@@ -223,7 +244,63 @@ def test_cuda_engine_raises_without_a_card(monkeypatch):
     with pytest.raises(_engine.CudaUnavailableError):
         ops.profile_gemm_lane_toggles(a, w, 8, 4, 16, 37)
     with pytest.raises(_engine.CudaUnavailableError):
+        ops.stream_lane_toggle_totals(a, 16)
+    with pytest.raises(_engine.CudaUnavailableError):
         profile_gemm(a, w, 8, 4, 16, 37, backend="cuda", lane_detail=True, use_cache=False)
+    # L1 and L2 themselves: a tensor taken for a card tensor launches the
+    # kernel, and a launch that cannot happen raises; no plain version
+    # stands in and no launch is counted
+    a_t = torch.from_numpy(a.astype(np.int32))
+    w_t = torch.from_numpy(w.astype(np.int32))
+
+    def no_card(*args):
+        raise _engine.CudaUnavailableError("no CUDA device")
+
+    monkeypatch.setattr(K, "on_cpu", lambda x, name: False)
+    monkeypatch.setattr(K, "launch", no_card)
+    before = (K.ws_lane_toggles.launches, K.stream_lane_toggles.launches)
+    with pytest.raises(_engine.CudaUnavailableError):
+        K.ws_lane_toggles(a_t, w_t, 8, 37)
+    with pytest.raises(_engine.CudaUnavailableError):
+        K.stream_lane_toggles(a_t, 16)
+    assert (K.ws_lane_toggles.launches, K.stream_lane_toggles.launches) == before
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="runs on cpu or cuda tensors"):
+        K.stream_lane_toggles(a_t.to("meta"), 16)
+
+
+@pytest.mark.parametrize("dataflow", ["WS", "OS"])
+def test_card_route_calls_no_plain_version(monkeypatch, dataflow):
+    """With the route resolved for a CUDA device, the lane profile launches
+    L2 (and L1 under WS) once a pass and never calls a plain version."""
+    def plain(*args, **kw):
+        raise AssertionError("a plain version ran on the card route")
+
+    launched = []
+
+    def fake_launch(source, fn_name, device, *args):
+        # zero the output, as the C entry does: (a, w, out, ...) for L1,
+        # (x, out, t, lanes, bits) for L2
+        out, size = (args[2], 8 * args[7]) if fn_name == "ws_lane_toggles" else (
+            args[1], 8 * K.compact_lanes(args[4]))
+        ctypes.memset(out, 0, size)
+        launched.append((source, fn_name))
+
+    for name in ("ws_lane_toggles_plain", "stream_lane_toggles_plain", "_lane_counts"):
+        monkeypatch.setattr(K, name, plain)
+    monkeypatch.setattr(ops, "engine_device", lambda engine: torch.device("cpu"))
+    monkeypatch.setattr(K, "on_cpu", lambda x, name: False)
+    monkeypatch.setattr(K, "launch", fake_launch)
+    a, w = _rand_gemm()
+    before = (K.ws_lane_toggles.launches, K.stream_lane_toggles.launches)
+    got = ops.profile_gemm_lane_toggles(a, w, 8, 4, 16, 37, dataflow=dataflow, engine="cuda")
+    l1, l2 = ("lane_toggles", "ws_lane_toggles"), ("lane_toggles", "stream_lane_toggles")
+    assert launched == ([l2, l1] if dataflow == "WS" else [l2, l2])
+    assert (K.ws_lane_toggles.launches - before[0], K.stream_lane_toggles.launches - before[1]) == (
+        (1, 1) if dataflow == "WS" else (0, 2))
+    assert sum(got.h_lanes) == sum(got.v_lanes) == 0
+    ops.stream_lane_toggle_totals(a, 33, engine="cuda")
+    assert launched[-1] == ("lane_toggles", "stream_lane_toggles")
 
 
 @pytest.mark.parametrize("dataflow", ["WS", "OS"])

@@ -15,7 +15,11 @@ the port's sharded step and MoE dispatch on eight CPU ranks.
   routes, lie within TRAIN_TOL (relative L2) of the unsharded ones, and
   so do the mixtral reduced step's loss, gradients and update, whose MoE
   takes the sharded branch under autograd (capacity for every token, so
-  that per-shard and global capacity drop none);
+  that per-shard and global capacity drop none), and so do the xlstm
+  reduced step's, whose gates' ``F.logsigmoid`` (DTensor has no sharding
+  rule for its backward) and mLSTM recurrence run through ``local_map``;
+  that step runs in float64, since the f32 step's own gradients lie up to
+  1.6e-5 from float64's, above TRAIN_TOL;
   each rank's placed block is the global tensor's block at its coordinate;
   and the mixtral reduced MoE's sharded dispatch (``local_map``) lies within
   MOE_TOL (relative L2; its aux loss relative) of the reference's
@@ -216,6 +220,8 @@ def test_shard_shapes_and_blocks_equal_jax(runs, arch, kind, mesh_name):
 _LEAVES = sorted(_flat(M.Model(get_arch("yi_6b").reduced(), None, device="meta").stage(None)))
 _MOE_LEAVES = sorted(_flat(M.Model(get_arch("mixtral_8x7b").reduced(), None,
                                    device="meta").stage(None)))
+_XLSTM_LEAVES = sorted(_flat(M.Model(get_arch("xlstm_1p3b").reduced(), None,
+                                     device="meta").stage(None)))
 
 
 def test_sharded_loss_equals_unsharded(runs):
@@ -256,6 +262,23 @@ def test_moe_sharded_train_gradient_equals_unsharded(runs, leaf):
 @pytest.mark.parametrize("leaf", _MOE_LEAVES)
 def test_moe_sharded_train_update_equals_unsharded(runs, leaf):
     assert runs[1]["moe_train"]["params"][leaf] <= TRAIN_TOL
+
+
+# The xlstm reduced step in float64: its gates' log-sigmoid and its mLSTM
+# recurrence through local_map, forward and backward, each rank on its own
+# block
+def test_xlstm_sharded_train_loss_equals_unsharded(runs):
+    assert runs[1]["xlstm_train"]["loss"] <= TRAIN_TOL
+
+
+@pytest.mark.parametrize("leaf", _XLSTM_LEAVES)
+def test_xlstm_sharded_train_gradient_equals_unsharded(runs, leaf):
+    assert runs[1]["xlstm_train"]["grads"][leaf] <= TRAIN_TOL
+
+
+@pytest.mark.parametrize("leaf", _XLSTM_LEAVES)
+def test_xlstm_sharded_train_update_equals_unsharded(runs, leaf):
+    assert runs[1]["xlstm_train"]["params"][leaf] <= TRAIN_TOL
 
 
 def test_place_gives_each_rank_its_block(runs):
