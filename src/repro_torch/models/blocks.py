@@ -27,6 +27,7 @@ import math
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
 from repro_torch.models.layers import (
     ACTIVATIONS,
@@ -115,8 +116,9 @@ def _qkv(p, x, cfg, cos, sin):
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
     if cos is not None:
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+        with obs.span("model.rope"):
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
     return q, k, v
 
 
@@ -335,33 +337,37 @@ def _dispatch_local(x_loc, expert_idx_loc, e: int, k_top: int, capacity: int, sh
     Returns the expert buffers reshaped to (shards, E*capacity/shards, D)
     (replication groups split an expert's capacity rows contiguously) and
     the slot -> buffer-row map for the combine (E*capacity for a drop)."""
-    t_loc, d = x_loc.shape
-    dev = x_loc.device
-    eids = expert_idx_loc.reshape(-1).long()  # (T_loc*k,) slot-major
-    slots = torch.arange(t_loc * k_top, device=dev)
-    sort_idx = torch.argsort(eids, stable=True)
-    sorted_eids = eids[sort_idx]
-    group_start = torch.searchsorted(sorted_eids, torch.arange(e, device=dev))
-    rank = torch.empty_like(slots)
-    rank[sort_idx] = slots - group_start[sorted_eids]
+    with obs.span("model.moe.dispatch"):
+        t_loc, d = x_loc.shape
+        dev = x_loc.device
+        eids = expert_idx_loc.reshape(-1).long()  # (T_loc*k,) slot-major
+        slots = torch.arange(t_loc * k_top, device=dev)
+        sort_idx = torch.argsort(eids, stable=True)
+        sorted_eids = eids[sort_idx]
+        group_start = torch.searchsorted(sorted_eids, torch.arange(e, device=dev))
+        rank = torch.empty_like(slots)
+        rank[sort_idx] = slots - group_start[sorted_eids]
 
-    valid = rank < capacity
-    dest = torch.where(valid, eids * capacity + rank, e * capacity)  # overflow row
-    gathered = x_loc[slots // k_top]  # (T_loc*k, D)
-    buf = torch.zeros((e * capacity + 1, d), dtype=x_loc.dtype, device=dev)
-    buf.index_add_(0, dest, gathered * valid[:, None].to(x_loc.dtype))
-    return buf[:-1].reshape(shards, e * capacity // shards, d), dest
+        valid = rank < capacity
+        if obs.on():  # under a mesh, this rank's own drops
+            obs.add("moe.slots_dropped", (~valid).sum())
+        dest = torch.where(valid, eids * capacity + rank, e * capacity)  # overflow row
+        gathered = x_loc[slots // k_top]  # (T_loc*k, D)
+        buf = torch.zeros((e * capacity + 1, d), dtype=x_loc.dtype, device=dev)
+        buf.index_add_(0, dest, gathered * valid[:, None].to(x_loc.dtype))
+        return buf[:-1].reshape(shards, e * capacity // shards, d), dest
 
 
 def _combine_local(expert_out_loc, dest, gate_vals_loc, k_top: int):
     """Inverse of _dispatch_local: gather slots back to (T_loc, D), each
     weighted by its gate (a dropped slot by 0)."""
-    d = expert_out_loc.shape[-1]
-    flat = expert_out_loc.reshape(-1, d)  # same linear order dest indexes
-    padded = torch.cat([flat, flat.new_zeros((1, d))])
-    valid = (dest < flat.shape[0]).to(flat.dtype)
-    per_slot = padded[dest] * (gate_vals_loc.reshape(-1) * valid)[:, None].to(flat.dtype)
-    return per_slot.reshape(gate_vals_loc.shape[0], k_top, d).sum(dim=1)
+    with obs.span("model.moe.combine"):
+        d = expert_out_loc.shape[-1]
+        flat = expert_out_loc.reshape(-1, d)  # same linear order dest indexes
+        padded = torch.cat([flat, flat.new_zeros((1, d))])
+        valid = (dest < flat.shape[0]).to(flat.dtype)
+        per_slot = padded[dest] * (gate_vals_loc.reshape(-1) * valid)[:, None].to(flat.dtype)
+        return per_slot.reshape(gate_vals_loc.shape[0], k_top, d).sum(dim=1)
 
 
 def _token_partition(mesh, t: int, act_rules) -> tuple[str, ...] | None:
@@ -390,16 +396,18 @@ def moe_apply(p, x, cfg, dropless: bool = False) -> tuple[torch.Tensor, torch.Te
     t = b * s
     xt = x.reshape(t, d)
 
-    router_logits = (xt @ p["router"].to(xt.dtype)).float()
-    probs = torch.softmax(router_logits, dim=-1)  # (T, E)
-    gate_vals, expert_idx = _top_k(probs, k_top)  # (T, k)
-    if cfg.renormalize_topk:
-        gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+    obs.add("moe.slots", t * k_top)
+    with obs.span("model.moe.route"):
+        router_logits = (xt @ p["router"].to(xt.dtype)).float()
+        probs = torch.softmax(router_logits, dim=-1)  # (T, E)
+        gate_vals, expert_idx = _top_k(probs, k_top)  # (T, k)
+        if cfg.renormalize_topk:
+            gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
 
-    # aux load-balance loss (Switch): E * sum_e f_e * P_e
-    pe = probs.mean(dim=0)
-    fe = (expert_idx[:, 0, None] == torch.arange(e, device=expert_idx.device)).float().mean(0)
-    aux = e * (fe * pe).sum()
+        # aux load-balance loss (Switch): E * sum_e f_e * P_e
+        pe = probs.mean(dim=0)
+        fe = (expert_idx[:, 0, None] == torch.arange(e, device=expert_idx.device)).float().mean(0)
+        aux = e * (fe * pe).sum()
 
     mesh = active_mesh()
     tok_axes = (_token_partition(mesh, t, active_act_rules())
@@ -456,23 +464,25 @@ def _expert_ffn(p, expert_in, cfg):
     with ``cfg.expert_shards`` > E, each expert's weights serve
     shards / E consecutive buffers (the dispatch split its capacity rows
     between them), which leaves the output unchanged."""
-    act = ACTIVATIONS[cfg.activation]
-    dt = expert_in.dtype
-    e = cfg.num_experts
-    shards = cfg.expert_shards or e
-    rep = shards // e
+    with obs.span("model.moe.experts"):
+        obs.add("moe.expert_rows", expert_in.shape[0] * expert_in.shape[1])
+        act = ACTIVATIONS[cfg.activation]
+        dt = expert_in.dtype
+        e = cfg.num_experts
+        shards = cfg.expert_shards or e
+        rep = shards // e
 
-    def phys(w, axes):
-        w = w.to(dt)
-        if rep > 1:
-            w = w[:, None].expand((e, rep) + w.shape[1:]).reshape((shards,) + w.shape[1:])
-        return shard_hint(w, *axes)
+        def phys(w, axes):
+            w = w.to(dt)
+            if rep > 1:
+                w = w[:, None].expand((e, rep) + w.shape[1:]).reshape((shards,) + w.shape[1:])
+            return shard_hint(w, *axes)
 
-    up_axes = ("experts", "expert_embed", "expert_mlp")  # (E, D, F)
-    down_axes = ("experts", "expert_mlp", "expert_embed")  # (E, F, D)
-    h = act(torch.bmm(expert_in, phys(p["w_gate"], up_axes)))
-    h = h * torch.bmm(expert_in, phys(p["w_up"], up_axes))
-    h = shard_hint(h, "experts", "expert_cap", "mlp")
-    out = torch.bmm(h, phys(p["w_down"], down_axes))
-    # pin the output layout, as the reference does
-    return shard_hint(out, "experts", "expert_cap", "embed")
+        up_axes = ("experts", "expert_embed", "expert_mlp")  # (E, D, F)
+        down_axes = ("experts", "expert_mlp", "expert_embed")  # (E, F, D)
+        h = act(torch.bmm(expert_in, phys(p["w_gate"], up_axes)))
+        h = h * torch.bmm(expert_in, phys(p["w_up"], up_axes))
+        h = shard_hint(h, "experts", "expert_cap", "mlp")
+        out = torch.bmm(h, phys(p["w_down"], down_axes))
+        # pin the output layout, as the reference does
+        return shard_hint(out, "experts", "expert_cap", "embed")

@@ -41,6 +41,7 @@ from torch.utils.checkpoint import (
     noop_context_fn,
 )
 
+from repro_torch import obs
 from repro_torch.models import blocks, ssm, xlstm
 from repro_torch.models.layers import ParamBlock, dense_param, ones_param, param_device, rms_norm
 from repro_torch.parallel.sharding import (
@@ -282,12 +283,13 @@ def _lookup(table, ids):
 
 
 def _embed(cfg, params, tokens, dtype):
-    if cfg.num_codebooks > 1:
-        # tokens: (B, S, K); sum the K codebook embeddings
-        x = sum(_lookup(params["embed"][k], tokens[..., k]) for k in range(cfg.num_codebooks))
-    else:
-        x = _lookup(params["embed"], tokens)
-    return x.to(dtype)
+    with obs.span("model.embed"):
+        if cfg.num_codebooks > 1:
+            # tokens: (B, S, K); sum the K codebook embeddings
+            x = sum(_lookup(params["embed"][k], tokens[..., k]) for k in range(cfg.num_codebooks))
+        else:
+            x = _lookup(params["embed"], tokens)
+        return x.to(dtype)
 
 
 def _codebook_logits(x, head):
@@ -367,7 +369,8 @@ REMAT_MODES = ("none", "full", "stage", "block", "dots")
 def _mixer_block(cfg, x, bp, kind, positions, attention):
     h = shard_hint(rms_norm(x, bp["ln1"]), "batch", None, "embed")
     if kind == "attn":
-        y = blocks.attn_apply(bp["mixer"], h, cfg, positions, attention)
+        with obs.span("model.attn"):
+            y = blocks.attn_apply(bp["mixer"], h, cfg, positions, attention)
     elif kind == "mamba":
         y = ssm.mamba_apply(bp["mixer"], h, cfg)
     elif kind == "mlstm":
@@ -381,9 +384,11 @@ def _mlp_block(cfg, x, bp, kind):
     """(x + the block's MLP, its aux loss or None for a dense MLP)."""
     h = shard_hint(rms_norm(x, bp["ln2"]), "batch", None, "embed")
     if kind == "dense":
-        y, a = blocks.mlp_apply(bp["mlp"], h, cfg), None
+        with obs.span("model.mlp"):
+            y, a = blocks.mlp_apply(bp["mlp"], h, cfg), None
     else:
-        y, a = blocks.moe_apply(bp["mlp"], h, cfg)
+        with obs.span("model.moe"):
+            y, a = blocks.moe_apply(bp["mlp"], h, cfg)
     return x + shard_hint(y, "batch", "seq", "embed"), a
 
 
@@ -472,12 +477,14 @@ def forward(cfg, params: Model, tokens: torch.Tensor, positions: torch.Tensor | 
     ``last_only`` returns next-token logits for the final position only,
     the serving prefill path (full (B, S, V) logits at long sequences and
     large vocabularies would be huge and serve no purpose)."""
-    x, aux = _hidden(cfg, params, tokens, positions, attention)
-    if last_only:
-        x = shard_hint(x[:, -1], "batch", "embed")
-    else:
-        x = shard_hint(x, "batch", None, "embed")  # gather seq for the head
-    return _logits_hint(cfg, _head(cfg, params, x)), aux
+    with obs.span("model.forward"):
+        x, aux = _hidden(cfg, params, tokens, positions, attention)
+        with obs.span("model.head"):
+            if last_only:
+                x = shard_hint(x[:, -1], "batch", "embed")
+            else:
+                x = shard_hint(x, "batch", None, "embed")  # gather seq for the head
+            return _logits_hint(cfg, _head(cfg, params, x)), aux
 
 
 def _logits_hint(cfg, logits):
