@@ -1374,6 +1374,7 @@ def mesh_path_check(*, dev, smi, model, training) -> dict:
 
     from repro_torch.configs.registry import get_arch
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import blocks
     from repro_torch.models import model as M
     from repro_torch.parallel import sharding as sh
 
@@ -1430,13 +1431,19 @@ def mesh_path_check(*, dev, smi, model, training) -> dict:
             # deterministic algorithms (its scatter-add accumulates)
             reset_counts()
             q_logits, q_ms = host_timed(q_forward)
+            # the single-device forward is held to the capacity branch,
+            # which the sharded branch reproduces bit for bit (the compact
+            # path's other row blocks round otherwise)
             torch.use_deterministic_algorithms(True)
+            compact_min_rows = blocks.COMPACT_MIN_ROWS
             try:
                 m_logits, m_ms = host_timed(m_forward)
                 counts = read_counts()
+                blocks.COMPACT_MIN_ROWS = 2**62
                 m_plain, m_plain_ms = host_timed(
                     lambda: M.forward(moe, m_tree, m_plain_tokens, last_only=True)[0])
             finally:
+                blocks.COMPACT_MIN_ROWS = compact_min_rows
                 torch.use_deterministic_algorithms(False)
             # K7 at Mixtral's shape against its plain version: the torch route
             m_torch = M.forward(moe, m_tree, m_plain_tokens, last_only=True, attention="torch")[0]

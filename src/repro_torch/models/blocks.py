@@ -16,9 +16,11 @@ products.  Decode updates the cache in place.
 
 The MoE dispatch and combine run device-local: on each rank's tokens
 under an active mesh (``local_map``, the reference's ``shard_map``), on
-all of them without one.  Under an active mesh (DTensor inputs), either
-attention route runs on each rank's batch and head shards through
-``local_map``.
+all of them without one.  On one device, at a mean routed load of a
+tensor-core tile of rows or more, the expert products run on the routed
+rows alone, sorted by expert (``COMPACT_MIN_ROWS``).  Under an active
+mesh (DTensor inputs), either attention route runs on each rank's batch
+and head shards through ``local_map``.
 """
 
 from __future__ import annotations
@@ -329,33 +331,50 @@ def _top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+def _rank_slots(expert_idx, e: int):
+    """Sort-based ranking (a stable sort: a slot's rank is its order among
+    the slots routed to its expert).  Returns the slot-major expert ids,
+    the slots sorted by expert, each expert's first place in that order,
+    and each slot's rank."""
+    dev = expert_idx.device
+    eids = expert_idx.reshape(-1).long()  # (T*k,) slot-major
+    slots = torch.arange(eids.shape[0], device=dev)
+    sort_idx = torch.argsort(eids, stable=True)
+    sorted_eids = eids[sort_idx]
+    group_start = torch.searchsorted(sorted_eids, torch.arange(e, device=dev))
+    rank = torch.empty_like(slots)
+    rank[sort_idx] = slots - group_start[sorted_eids]
+    return eids, sort_idx, group_start, rank
+
+
 def _dispatch_local(x_loc, expert_idx_loc, e: int, k_top: int, capacity: int, shards: int):
     """Per-shard (device-local) capacity dispatch. x_loc: (T_loc, D).
 
-    Sort-based ranking (a stable sort: a slot's rank is its order among the
-    slots routed to its expert), static capacity, overflow dropped.
+    ``_rank_slots``' ranking, static capacity, overflow dropped.
     Returns the expert buffers reshaped to (shards, E*capacity/shards, D)
     (replication groups split an expert's capacity rows contiguously) and
     the slot -> buffer-row map for the combine (E*capacity for a drop)."""
     with obs.span("model.moe.dispatch"):
         t_loc, d = x_loc.shape
         dev = x_loc.device
-        eids = expert_idx_loc.reshape(-1).long()  # (T_loc*k,) slot-major
-        slots = torch.arange(t_loc * k_top, device=dev)
-        sort_idx = torch.argsort(eids, stable=True)
-        sorted_eids = eids[sort_idx]
-        group_start = torch.searchsorted(sorted_eids, torch.arange(e, device=dev))
-        rank = torch.empty_like(slots)
-        rank[sort_idx] = slots - group_start[sorted_eids]
-
+        eids, _, _, rank = _rank_slots(expert_idx_loc, e)
         valid = rank < capacity
         if obs.on():  # under a mesh, this rank's own drops
             obs.add("moe.slots_dropped", (~valid).sum())
         dest = torch.where(valid, eids * capacity + rank, e * capacity)  # overflow row
-        gathered = x_loc[slots // k_top]  # (T_loc*k, D)
+        gathered = x_loc[torch.arange(t_loc * k_top, device=dev) // k_top]  # (T_loc*k, D)
         buf = torch.zeros((e * capacity + 1, d), dtype=x_loc.dtype, device=dev)
         buf.index_add_(0, dest, gathered * valid[:, None].to(x_loc.dtype))
         return buf[:-1].reshape(shards, e * capacity // shards, d), dest
+
+
+def _combine_rows(padded, dest, gate_vals, k_top: int):
+    """Each slot's row of ``padded`` (whose last row is zero: a dropped
+    slot's), weighted by its gate (a dropped slot by 0), summed over k."""
+    d = padded.shape[-1]
+    valid = (dest < padded.shape[0] - 1).to(padded.dtype)
+    per_slot = padded[dest] * (gate_vals.reshape(-1) * valid)[:, None].to(padded.dtype)
+    return per_slot.reshape(gate_vals.shape[0], k_top, d).sum(dim=1)
 
 
 def _combine_local(expert_out_loc, dest, gate_vals_loc, k_top: int):
@@ -364,10 +383,77 @@ def _combine_local(expert_out_loc, dest, gate_vals_loc, k_top: int):
     with obs.span("model.moe.combine"):
         d = expert_out_loc.shape[-1]
         flat = expert_out_loc.reshape(-1, d)  # same linear order dest indexes
-        padded = torch.cat([flat, flat.new_zeros((1, d))])
-        valid = (dest < flat.shape[0]).to(flat.dtype)
-        per_slot = padded[dest] * (gate_vals_loc.reshape(-1) * valid)[:, None].to(flat.dtype)
-        return per_slot.reshape(gate_vals_loc.shape[0], k_top, d).sum(dim=1)
+        return _combine_rows(torch.cat([flat, flat.new_zeros((1, d))]), dest, gate_vals_loc, k_top)
+
+
+# The compact path's rule: it runs where the mean routed load T * k / E is
+# at least one tensor-core tile of rows.  Below that, the expert products
+# are bound by reading the experts' weights, which the capacity buffers'
+# padding does not change, and the compact path's one read of the row
+# counts to the host a layer would only cost time.
+COMPACT_MIN_ROWS = 128
+
+
+def _dispatch_compact(x, expert_idx, e: int, k_top: int, capacity: int):
+    """Every slot's row, sorted by expert: no padding. x: (T, D).
+
+    ``_rank_slots``' ranking and ``_dispatch_local``'s drop rule (a slot
+    is kept iff its rank is below ``capacity``).  Returns x's rows of the
+    slots in the sorted order, (T*k, D): expert i's ``loads[i]`` rows
+    follow the experts' before it, its kept ones first; ``loads``, a host
+    list (the path's one sync); and the slot -> row map for the combine
+    (a slot's sorted place; T*k, one zero row past the slots', for a drop)."""
+    with obs.span("model.moe.dispatch"):
+        eids, sort_idx, group_start, rank = _rank_slots(expert_idx, e)
+        group_end = torch.searchsorted(eids[sort_idx], torch.arange(e, device=x.device), right=True)
+        loads = (group_end - group_start).to("cpu", non_blocking=True)
+        ready = None
+        if x.is_cuda:
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(x.device))
+        # queued before the host waits for the loads: the card gathers
+        # while the host wakes
+        rows = x[sort_idx // k_top]
+        dest = torch.where(rank < capacity, group_start[eids] + rank, eids.shape[0])
+        if ready is not None:
+            ready.synchronize()
+        loads = loads.tolist()
+        obs.add("moe.slots_dropped", sum(max(n - capacity, 0) for n in loads))
+        return rows, loads, dest
+
+
+def _expert_ffn_compact(weights: list, rows, loads: list, capacity: int, cfg):
+    """SwiGLU of each expert on its kept rows alone (the first
+    min(loads[i], capacity) of its ``loads[i]``), each expert's weights
+    (``weights[i]``: gate, up, down) used once.  Returns (T*k + 1, D) for
+    ``_combine_rows``, whose last row is zero.  The combine reads no
+    dropped slot's row, so without gradients the down products write
+    straight into an uninitialised buffer; with them, zeros stand in for
+    the dropped rows."""
+    with obs.span("model.moe.experts"):
+        slots, d = rows.shape
+        act = ACTIVATIONS[cfg.activation]
+        grad = torch.is_grad_enabled()
+        out = None if grad else rows.new_empty((slots + 1, d))
+        parts, start, kept = [], 0, 0
+        for (w_gate, w_up, w_down), load in zip(weights, loads):
+            count = min(load, capacity)
+            if count:
+                x_e = rows[start:start + count]
+                h = act(x_e @ w_gate) * (x_e @ w_up)
+                if grad:
+                    parts.append(h @ w_down)
+                else:
+                    torch.matmul(h, w_down, out=out[start:start + count])
+            if grad and load > count:
+                parts.append(rows.new_zeros((load - count, d)))
+            start += load
+            kept += count
+        obs.add("moe.expert_rows", kept)
+        if grad:
+            return torch.cat(parts + [rows.new_zeros((1, d))])
+        out[slots].zero_()
+        return out
 
 
 def _token_partition(mesh, t: int, act_rules) -> tuple[str, ...] | None:
@@ -390,7 +476,14 @@ def moe_apply(p, x, cfg, dropless: bool = False) -> tuple[torch.Tensor, torch.Te
     (``local_map``, the reference's ``shard_map``) with a per-shard
     capacity, and only the dense (E, C, D) buffers cross ranks: resharded
     from capacity-sharded to expert-sharded (``shard_hint``, the
-    expert-parallel all-to-all) and back.  Otherwise local is global."""
+    expert-parallel all-to-all) and back.  Otherwise local is global.
+
+    On a plain tensor whose mean routed load T * k / E is at least
+    ``COMPACT_MIN_ROWS``, the dispatch sorts the slots' rows by expert with
+    no padding, and the expert products run on the kept rows alone
+    (``_dispatch_compact``, ``_expert_ffn_compact``; the same drops): the
+    same result for one read of the E loads to the host.  Below it, and on
+    DTensors, the (E, C, D) capacity buffers."""
     b, s, d = x.shape
     e, k_top = cfg.num_experts, cfg.top_k
     t = b * s
@@ -422,7 +515,18 @@ def moe_apply(p, x, cfg, dropless: bool = False) -> tuple[torch.Tensor, torch.Te
         capacity = max(int(t_loc * k_top * cfg.capacity_factor) // e, 1)
     capacity = -(-capacity // rep) * rep  # the physical split must divide
 
-    if tok_axes is None:
+    if not is_dtensor(xt) and t * k_top >= COMPACT_MIN_ROWS * e:
+        # the compact path: a plain tensor, so no mesh shards the tokens
+        obs.add("moe.compact_layers", 1)
+        # the weights' views first: host work done while the card still
+        # runs the router, before the dispatch waits for the loads
+        weights = list(zip(*(p[name].to(xt.dtype).unbind(0)
+                             for name in ("w_gate", "w_up", "w_down"))))
+        rows, loads, dest = _dispatch_compact(xt, expert_idx, e, k_top, capacity)
+        expert_out = _expert_ffn_compact(weights, rows, loads, capacity, cfg)
+        with obs.span("model.moe.combine"):
+            out = _combine_rows(expert_out, dest, gate_vals, k_top)
+    elif tok_axes is None:
         # single-device / tiny-batch path: local == global
         expert_in, dest = _dispatch_local(xt, expert_idx, e, k_top, capacity, shards)
         expert_out = _expert_ffn(p, expert_in, cfg)

@@ -17,7 +17,9 @@ Each rank places the same seeded parameters and batch on the mesh
    gradient leaf, each updated parameter and the logits from the same
    computation unsharded;
 2. the mixtral reduced MoE layer (``blocks.moe_apply``) on the inputs of
-   the ``.npz``: the sharded dispatch, written out whole by rank 0;
+   the ``.npz``: the sharded dispatch, written out whole by rank 0; then
+   on 512 tokens, above the compact path's rule: DTensor tokens on the
+   capacity path against plain ones on the compact path;
 3. ``place``'s blocks: every rank's local block of each parameter must be
    the global tensor's block at its mesh coordinate (``shard_slices``).
 
@@ -58,6 +60,7 @@ def _full(t):
 
 
 def _rank(rank: int, store_path: str, npz_path: str, out_path: str) -> None:
+    from repro_torch import obs
     from repro_torch.configs.registry import get_arch
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.steps import make_train_step
@@ -163,6 +166,25 @@ def _rank(rank: int, store_path: str, npz_path: str, out_path: str) -> None:
         with torch.no_grad(), sh.activation_sharding(mesh):
             out, aux = blocks.moe_apply(p, x, moe_cfg)
         moe_out, moe_aux = _full(out), _full(aux)
+        # above the compact path's rule (a mean load of 256 rows an expert),
+        # DTensor tokens keep the capacity path; plain ones take the compact
+        # path, and with no token dropped both compute one function
+        nodrop = dataclasses.replace(moe_cfg, capacity_factor=moe_cfg.num_experts / moe_cfg.top_k)
+        x_big = torch.from_numpy(np.random.default_rng(2).standard_normal(
+            (8, 64, moe_cfg.d_model), dtype=np.float32))
+        plain_p = {k[2:]: torch.from_numpy(data[k]) for k in data.files if k.startswith("p/")}
+        compact_layers = {}
+        with torch.no_grad():
+            with obs.tracing():
+                want_big, _ = blocks.moe_apply(plain_p, x_big, nodrop)
+                compact_layers["plain"] = obs.counters().get("moe.compact_layers", 0)
+            placed_big = sh.place(x_big, sh.sharding_for(("batch", "seq", "embed"), x_big.shape,
+                                                         mesh))
+            with obs.tracing(), sh.activation_sharding(mesh):
+                got_big, _ = blocks.moe_apply(p, placed_big, nodrop)
+                compact_layers["dtensor"] = obs.counters().get("moe.compact_layers", 0)
+        result["moe_rule"] = {"compact_layers": compact_layers,
+                              "rel": _rel(_full(got_big), want_big)}
 
         # 3. place's blocks
         tree = M.from_reference_params(cfg, numpy_params).stage(None)

@@ -1212,7 +1212,8 @@ def test_one_rank_mesh_forward_equals_unsharded_on_the_card(card, tmp_path, monk
     """A reduced arch's f32 forward on a 1x1 NCCL mesh (parameters placed by
     the rules, activations under activation_sharding) equals the unsharded
     forward bit for bit, with K7 launched through local_map once per
-    attention layer; mixtral's MoE takes the sharded dispatch.  Both under
+    attention layer; mixtral's MoE takes the sharded dispatch, against the
+    unsharded capacity branch.  Both under
     deterministic algorithms (the MoE's scatter-add accumulates)."""
     import torch.distributed as dist
 
@@ -1221,6 +1222,12 @@ def test_one_rank_mesh_forward_equals_unsharded_on_the_card(card, tmp_path, monk
     from repro_torch.models import model as TM
     from repro_torch.parallel import sharding as sh
 
+    from repro_torch.models import blocks
+
+    # the unsharded MoE on its capacity branch, which the sharded branch
+    # reproduces; at 2 x 128 tokens it would take the compact path, which
+    # packs other row blocks (held to this branch by the compact MoE tests)
+    monkeypatch.setattr(blocks, "COMPACT_MIN_ROWS", 2**62)
     cfg = get_arch(arch).reduced()
     params, axes = TM.init_params(cfg, torch.Generator(device=card).manual_seed(0))
     tree = params.stage(None)
@@ -1246,3 +1253,70 @@ def test_one_rank_mesh_forward_equals_unsharded_on_the_card(card, tmp_path, monk
         torch.use_deterministic_algorithms(False)
     assert launched == attn_layers
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# The MoE's compact path at Mixtral-8x7B's width
+# ---------------------------------------------------------------------------
+
+COMPACT_BF16_REL = 1e-3
+
+
+@pytest.mark.parametrize("capacity_factor,idle", [(4.0, None), (1.25, 3)],
+                         ids=["dropless", "drops-idle-expert"])
+def test_compact_moe_matches_capacity_moe_on_the_card(card, monkeypatch, capacity_factor, idle):
+    """One Mixtral-8x7B MoE layer (D 4096, F 14336, E 8, top-2, T 7680,
+    bf16) on the compact path and on the capacity path: the same slots
+    kept, the products on the kept rows alone, outputs within
+    COMPACT_BF16_REL relative L2 (both bf16 products with float32 sums;
+    the row blocks differ, so cuBLAS may sum in another order and round
+    another bf16 h; an H100 read 0.0 and 3.0e-5.  The limit is a quarter
+    of bf16's unit roundoff; a row on the wrong expert reads O(1)).  The
+    second case drops slots (capacity factor 1.25) and routes no row to
+    expert ``idle`` (its router logit is -10 times a row's sum, on
+    positive inputs)."""
+    import dataclasses
+
+    from repro_torch import obs
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import blocks
+
+    cfg = dataclasses.replace(get_arch("mixtral_8x7b"), capacity_factor=capacity_factor,
+                              expert_shards=0)
+    d, f, e, t = cfg.d_model, cfg.moe_d_ff or cfg.d_ff, cfg.num_experts, 7680
+    assert (d, f, e, cfg.top_k) == (4096, 14336, 8, 2)
+    gen = torch.Generator(device=card).manual_seed(7)
+
+    def draw(*shape, scale):
+        return (torch.randn(shape, generator=gen, device=card) * scale).to(torch.bfloat16)
+
+    p = {"router": draw(d, e, scale=d ** -0.5), "w_gate": draw(e, d, f, scale=d ** -0.5),
+         "w_up": draw(e, d, f, scale=d ** -0.5), "w_down": draw(e, f, d, scale=f ** -0.5)}
+    x = draw(1, t, d, scale=1.0)
+    if idle is not None:
+        p["router"][:, idle] = -10.0
+        x = x.abs()
+        top = torch.topk((x.reshape(t, d) @ p["router"]).float(), cfg.top_k).indices
+        assert not (top == idle).any()
+
+    def run():
+        with torch.inference_mode(), obs.tracing():
+            out, aux = blocks.moe_apply(p, x, cfg)
+            return out.float(), aux, obs.counters()
+
+    got, aux, counters = run()
+    monkeypatch.setattr(blocks, "COMPACT_MIN_ROWS", 2**62)
+    want, want_aux, want_counters = run()
+    kept = t * cfg.top_k - counters["moe.slots_dropped"]
+    assert counters["moe.compact_layers"] == 1 and "moe.compact_layers" not in want_counters
+    assert counters["moe.slots_dropped"] == want_counters["moe.slots_dropped"]
+    assert counters["moe.expert_rows"] == kept
+    if idle is None:
+        assert kept == t * cfg.top_k
+    else:
+        assert 0 < kept < t * cfg.top_k
+    assert aux.item() == want_aux.item()
+    rel = ((got - want).norm() / want.norm()).item()
+    print(f"compact against capacity, capacity factor {capacity_factor}: relative L2 {rel!r}")
+    assert rel <= COMPACT_BF16_REL, rel
+

@@ -23,7 +23,9 @@ the port's sharded step and MoE dispatch on eight CPU ranks.
   each rank's placed block is the global tensor's block at its coordinate;
   and the mixtral reduced MoE's sharded dispatch (``local_map``) lies within
   MOE_TOL (relative L2; its aux loss relative) of the reference's
-  ``shard_map`` branch on the same inputs.
+  ``shard_map`` branch on the same inputs; above the compact path's rule,
+  DTensor tokens keep that capacity dispatch, within MOE_TOL of the plain
+  tokens' compact path.
 
 Each subprocess has its own timeout and rendezvous goes through a file in
 ``tmp_path``; no process group is left in the test process.
@@ -293,3 +295,13 @@ def test_moe_sharded_dispatch_equals_reference_shard_map(runs):
     rel = np.linalg.norm(out.astype(np.float64) - want) / np.linalg.norm(want)
     assert rel <= MOE_TOL, rel
     assert got["moe_aux"] == pytest.approx(ref["moe_aux"], rel=MOE_TOL)
+
+
+def test_moe_on_dtensors_keeps_the_capacity_path(runs):
+    """Above the compact path's rule, DTensor tokens take the sharded
+    capacity dispatch (the all-to-all moves its dense buffers) and plain
+    tokens the compact path; with no token dropped, one function."""
+    got = runs[1]["moe_rule"]
+    assert got["compact_layers"] == {"plain": 1, "dtensor": 0}
+    assert got["rel"] <= MOE_TOL, got["rel"]
+
