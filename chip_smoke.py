@@ -166,8 +166,19 @@ Phases (any mismatch exits non-zero; nothing is caught):
    the prefill and decode steps give back; prints the forward, prefill and
    decode walls, tokens/s, the device's busy share in traces of the
    forward and the decode steps, peak device memory, and K7's time at the
-   full-width shape beside SDPA ``is_causal`` and its bound.
-7. The training path (``training_path_check``), after phase 6's weights
+   full-width shape beside SDPA ``is_causal`` and its bound.  The reduced
+   Jamba's Mamba layers take L3 (f32), once a layer in each forward.
+6b. L3 and the Mamba path (``mamba_path_check``), after phase 6's weights
+   are freed, with the same count discipline: L3 at the Jamba cell's scan
+   shape (B = 1, S = 7680, d_inner 8192, N 16, bf16, long-memory draws),
+   one launch, within 2^-9 + 2e-5 relative L2 of its plain version, timed
+   beside it with the benchmark's bound (``portbench/ssm_counts.py``);
+   then one period of Jamba2-Mini (8 of 32 layers, all 16 experts, inner
+   norms, no RoPE; 26.6 GB of weights drawn on the card) in bf16 through
+   ``forward(last_only=True)`` at B = 1, S = 7680: 7 L3 launches, 1 K7
+   bf16 launch and no other kernel, finite logits, its wall beside the
+   same forward on the chunked scan.
+7. The training path (``training_path_check``), after phase 6b's weights
    are freed, with the same count discipline: every count must read 0 (the
    loss takes the torch attention route; K7 has no backward).  The ten
    reduced architectures in float32 from the same seeded parameters, on
@@ -231,7 +242,9 @@ beside their first main path's; K7 bf16's time at the model's shape;
 every kernel's launches on the training path, 0, and on the mesh path,
 K7 bf16's 38 and every other 0; L1 and L2 with their launches on the
 design-space path, their first, and the XLA program each computes as
-their "reference"), the ``nvidia-smi`` line and
+their "reference"; L3 with its launches on phase 6b's Jamba-width forward,
+its first, its reduced launches on the model path, its time at the
+Jamba cell's scan shape, and its "reference"), the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when no
 CUDA device is available or when the repository's ``src/`` is missing.
 """
@@ -273,7 +286,7 @@ KERNELS = (
     "ws_activity_toggles", "ws_task_toggles", "strip_toggles", "operand_stream_toggles",
     "stream_toggles", "ws_gemm_tf32", "flash_attention_tf32", "attention_operand_planes",
     "ws_gemm_tc", "gemm_operand_planes", "flash_attention_tc", "ws_lane_toggles",
-    "stream_lane_toggles",
+    "stream_lane_toggles", "selective_scan_fwd",
 )
 # The f32 routes (K6 also bf16 with K or N not a multiple of 8) and K7's
 # prep: timed at the main paths' shapes, launched on none of the profiling
@@ -525,6 +538,7 @@ def launch_counters() -> dict:
     ``launches`` there is the sum of both GEMM (or attention) routes."""
     from repro_torch.kernels.activity_profile import kernel as K
     from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.kernels.selective_scan import kernel as SS
     from repro_torch.kernels.toggle_count import kernel as TC
     from repro_torch.kernels.ws_matmul import kernel as WM
 
@@ -539,6 +553,7 @@ def launch_counters() -> dict:
         flash_attention_tc=(FA.flash_attention_fwd, "tc_launches"),
         ws_lane_toggles=(K.ws_lane_toggles, "launches"),
         stream_lane_toggles=(K.stream_lane_toggles, "launches"),
+        selective_scan_fwd=(SS.selective_scan_fwd, "launches"),
     )
     return counters
 
@@ -877,14 +892,23 @@ def model_path_check(*, dev, smi) -> dict:
     counts = read_counts()
     attn_layers = {arch: c[1].n_stages * sum(m == "attn" for m, _ in c[1].stage_pattern)
                    for arch, c in cases.items()}
+    mamba_layers = {arch: c[1].n_stages * sum(m == "mamba" for m, _ in c[1].stage_pattern)
+                    for arch, c in cases.items()}
     want_tf32 = 2 * sum(attn_layers.values())
     check(counts["flash_attention_tf32"] == counts["attention_operand_planes"] == want_tf32,
           f"model path: K7 f32 launched {counts['flash_attention_tf32']} times (prep "
           f"{counts['attention_operand_planes']}), want {want_tf32} (two forwards per reduced arch)")
     check(counts["flash_attention_tc"] == cfg.n_layers,
           f"model path: K7 bf16 launched {counts['flash_attention_tc']} times, want {cfg.n_layers}")
+    # L3 on the reduced Mamba layers (f32, N 16, d_inner a multiple of 16),
+    # once a layer in each forward; decode steps carry the state themselves
+    want_scan = 2 * sum(mamba_layers.values())
+    check(counts["selective_scan_fwd"] == want_scan,
+          f"model path: L3 launched {counts['selective_scan_fwd']} times, want {want_scan} (two "
+          f"forwards per reduced arch)")
     others = {k: v for k, v in counts.items() if v and not k.startswith(("flash_attention",
-                                                                          "attention_operand"))}
+                                                                          "attention_operand",
+                                                                          "selective_scan"))}
     check(not others, f"model path launched other kernels: {others}")
 
     # 2. The reduced archs against the JAX package's logits, and against the
@@ -1032,7 +1056,7 @@ def model_path_check(*, dev, smi) -> dict:
           f"of the bound), SDPA is_causal {sdpa_ms:.4f} ms, plain {k7_plain_ms:.4f} ms, bound "
           f"{k7_bound:.5f} ms ({k7_by}) | {smi}", flush=True)
     launches = {name: counts[name] for name in ("flash_attention_tf32", "attention_operand_planes",
-                                                "flash_attention_tc")}
+                                                "flash_attention_tc", "selective_scan_fwd")}
     print(f"model path launches {launches}", flush=True)
     return {
         "launches": launches,
@@ -1046,6 +1070,120 @@ def model_path_check(*, dev, smi) -> dict:
         "forward_logits": full.cpu(),
         "tokens": tokens.cpu(),
     }
+
+
+# L3 and the Mamba path (phase 6b): L3 alone at the Jamba cell's scan shape
+# (B 1, S 7680, d_inner 8192, N 16, bf16, the long-memory draws of
+# tests/test_torch_cuda.py) against its plain version within L3_BF16_REL in
+# relative L2 (both scan in f32 and round y to bf16 once: half a bf16 ulp,
+# 2^-9, plus f32's order of sums), timed beside that plain version, with the
+# benchmark's bound (portbench/ssm_counts.py: bytes at 3.35 TB/s or f32
+# CUDA-core operations); then one period of Jamba2-Mini (8 of its 32 layers:
+# 7 Mamba, 1 attention, 4 MoE of 16 experts) at its published widths in bf16
+# through ``model.forward``, one L3 launch a Mamba layer, timed beside the
+# same forward on the chunked scan.  The two routes' logits are printed, not
+# gated: they round the scan's output at different points, and at the
+# registry's init (A = -1..-16, a state forgets within a few tokens) two
+# bf16 renderings of 8 layers differ by 3-6% at reduced widths on the CPU,
+# as much as a state dropped every 64 tokens; L3's numbers are held in step
+# 1, and the model's at width by the benchmark's Jamba cell.
+MAMBA_ARCH = "jamba_v01_52b"
+MAMBA_LAYERS = 8
+MAMBA_BATCH, MAMBA_SEQ = 1, 7680
+L3_BF16_REL = 2.0 ** -9 + 2e-5
+
+
+def mamba_path_check(*, dev, smi) -> dict:
+    """Phase 6b: L3 against its plain version and timed at Jamba's width,
+    then a Jamba-width forward with L3 counted and timed.  Returns L3's launches on
+    the model path, its largest difference from the plain version and its
+    times."""
+    import torch
+
+    from portbench import ssm_counts
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.selective_scan import kernel as SS
+    from repro_torch.models import model as M
+    from repro_torch.models import ssm
+
+    cfg = dataclasses.replace(get_arch(MAMBA_ARCH), n_layers=MAMBA_LAYERS, mamba_inner_norms=True,
+                              rope_kind="none", renormalize_topk=False,
+                              capacity_factor=8.0).with_dtypes("bfloat16", "bfloat16")
+    b, s, di, n = MAMBA_BATCH, MAMBA_SEQ, cfg.mamba_expand * cfg.d_model, cfg.mamba_d_state
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def draw(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    # 1. L3 alone, against its plain version on the same operands.
+    ops = (draw(b, s, di).bfloat16(), draw(b, s, di).bfloat16(), draw(b, s, di).bfloat16(),
+           draw(b, s, n).bfloat16(), draw(b, s, n).bfloat16(), -torch.exp(draw(di, n, scale=2.0)),
+           1 + 0.1 * draw(di), draw(di, scale=3.0))
+    reset_counts()
+    got = SS.selective_scan_fwd(*ops)
+    check(read_counts()["selective_scan_fwd"] == 1, "L3: one call did not count one launch")
+    want = SS.selective_scan_fwd_plain(*ops)
+    check(got.dtype == torch.bfloat16 and got.shape == want.shape
+          and bool(torch.isfinite(got).all()), f"L3: y {got.dtype} {tuple(got.shape)} or non-finite")
+    rel = rel_l2(got, want)
+    max_err = (got.float() - want.float()).abs().max().item()
+    check(rel <= L3_BF16_REL, f"L3 at B={b} S={s} d_inner={di} N={n} bf16: relative L2 {rel!r} "
+          f"from its plain version, beyond {L3_BF16_REL}")
+    ms = median_ms(lambda: SS.selective_scan_fwd(*ops), calls=20)
+    plain_ms = median_ms(lambda: SS.selective_scan_fwd_plain(*ops), calls=1, bursts=2)
+    widths = {"d_model": cfg.d_model, "mamba_expand": cfg.mamba_expand, "mamba_d_state": n}
+    bound, by = bound_ms(ssm_counts.scan_bytes(widths, b, s), ssm_counts.scan_ops(widths, b, s),
+                         ssm_counts.F32_FLOPS_PER_S)
+    print(f"  L3 at B={b} S={s} d_inner={di} N={n} bf16: relative L2 from its plain version "
+          f"{rel:.3e} (within {L3_BF16_REL:.3e}), max |diff| {max_err:.3e}; {ms:.4f} ms a call, "
+          f"plain {plain_ms:.1f} ms, bound {bound:.5f} ms ({by}), {100 * bound / ms:.1f}% of it "
+          f"| {smi}", flush=True)
+    del ops, got, want
+
+    # 2. One period of Jamba2-Mini through the model path: L3 once a Mamba
+    # layer, K7 bf16 once an attention layer, no other kernel; then the same
+    # forward on the chunked scan.
+    mamba_layers = cfg.n_stages * sum(m == "mamba" for m, _ in cfg.stage_pattern)
+    attn_layers = cfg.n_stages * sum(m == "attn" for m, _ in cfg.stage_pattern)
+    t0 = time.perf_counter()
+    params, _ = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev, dtype=torch.int32)
+    reset_counts()
+    (fused, _), first_ms = host_timed(lambda: M.forward(cfg, params, tokens, last_only=True))
+    counts = read_counts()
+    check(counts["selective_scan_fwd"] == mamba_layers,
+          f"{MAMBA_ARCH} {MAMBA_LAYERS} layers: L3 launched {counts['selective_scan_fwd']} times, "
+          f"want {mamba_layers} (one a Mamba layer)")
+    check(counts["flash_attention_tc"] == attn_layers,
+          f"{MAMBA_ARCH}: K7 bf16 launched {counts['flash_attention_tc']} times, want {attn_layers}")
+    others = {k: v for k, v in counts.items() if v and k not in ("selective_scan_fwd",
+                                                                  "flash_attention_tc")}
+    check(not others, f"{MAMBA_ARCH}: the forward launched other kernels: {others}")
+    _, warm_ms = host_timed(lambda: M.forward(cfg, params, tokens, last_only=True))
+    real_route = ssm.scan_route
+    ssm.scan_route = lambda *operands: "chunked"
+    try:
+        (chunked, _), chunked_ms = host_timed(lambda: M.forward(cfg, params, tokens, last_only=True))
+    finally:
+        ssm.scan_route = real_route
+    check(read_counts()["selective_scan_fwd"] == 2 * mamba_layers,
+          f"{MAMBA_ARCH}: L3 launched on the chunked route")
+    check(tuple(fused.shape) == (b, cfg.vocab_size) and bool(torch.isfinite(fused).all()),
+          f"{MAMBA_ARCH}: logits {tuple(fused.shape)} or non-finite on L3's route")
+    route_rel = rel_l2(fused, chunked)
+    print(f"  {MAMBA_ARCH} bf16 full width, {MAMBA_LAYERS} of 32 layers ({mamba_layers} Mamba, "
+          f"{attn_layers} attention, {cfg.num_experts} experts; {weight_bytes / 1e9:.2f} GB of "
+          f"weights drawn on the card in {init_s:.2f} s): forward(last_only) B={b} S={s} "
+          f"{first_ms:.1f} ms the first call, {warm_ms:.1f} ms warm, {chunked_ms:.1f} ms on the "
+          f"chunked scan; relative L2 between the routes {route_rel:.3e} (not gated); "
+          f"launches L3 {counts['selective_scan_fwd']}, K7 bf16 "
+          f"{counts['flash_attention_tc']} | {smi}", flush=True)
+    return {"launches": {"selective_scan_fwd": counts["selective_scan_fwd"]}, "max_abs_err": max_err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "shape": [b, s, di, n]}
 
 
 # The training path (phase 7): the ten reduced archs' training in float32
@@ -3038,8 +3176,17 @@ def main() -> None:
     # 4 added a ~0.14 ms elementwise kernel to every one of them).
     model = model_path_check(dev=dev, smi=smi)
 
+    # -- phase 6b: L3 and the Mamba path ---------------------------------------------
+    # After phase 6, whose weights are freed here.
+    torch.cuda.empty_cache()
+    mamba = mamba_path_check(dev=dev, smi=smi)
+    add("selective_scan_fwd", mamba["ms"], mamba["plain_ms"], mamba["bound_ms"], mamba["bound_by"])
+    max_err["selective_scan_fwd"] = mamba["max_abs_err"]
+    # its first main path: the Jamba-width forward
+    launches["selective_scan_fwd"] = mamba["launches"]["selective_scan_fwd"]
+
     # -- phase 7: the training path ------------------------------------------------
-    # After phase 6, whose bf16 weights were its own and are freed here.
+    # After phases 6 and 6b, whose bf16 weights were their own and are freed here.
     torch.cuda.empty_cache()
     print(f"phase 7: {torch.cuda.memory_allocated() / 1024 ** 3:.2f} GiB allocated before it",
           flush=True)
@@ -3104,6 +3251,11 @@ def main() -> None:
             "src/repro_torch/csrc/lane_toggles.cu",
             "src/repro/kernels/activity_profile/ops.py:486",
         ),
+        # no TPU kernel: the reference's Mamba scan
+        "selective_scan_fwd": (
+            "src/repro_torch/csrc/selective_scan.cu",
+            "src/repro/models/ssm.py:73",
+        ),
     }
     kernels = []
     for name, t in totals.items():
@@ -3151,6 +3303,10 @@ def main() -> None:
             row["design_space_launches"] = ds_launches[name]
         if name in ("ws_lane_toggles", "stream_lane_toggles"):
             row["reference"] = "an XLA program (_v_lane_toggles_xla / _h_lane_toggles_xla), not a Pallas kernel"
+        if name == "selective_scan_fwd":
+            row["reference"] = "an XLA program (lax.associative_scan in the Mamba block), not a Pallas kernel"
+            # L3 at the Jamba cell's scan shape (B, S, d_inner, N), bf16
+            row["shape"] = mamba["shape"]
         if name in serving["launches"]:
             row["serving_launches"] = serving["launches"][name]
         if name in parts:

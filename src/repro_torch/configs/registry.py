@@ -56,6 +56,9 @@ class ArchConfig:
     mamba_d_conv: int = 4
     mamba_expand: int = 2
     mamba_dt_rank: int = 0  # 0 -> d_model // 16
+    # Jamba's mixer: RMSNorms on dt (dt_rank wide), B and C (d_state wide),
+    # each with its own weight, between x_proj and dt_proj / the scan
+    mamba_inner_norms: bool = False
 
     # xLSTM
     xlstm_proj_factor: float = 2.0

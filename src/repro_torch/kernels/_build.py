@@ -72,6 +72,11 @@ SOURCES: dict[str, dict[str, tuple[list, type]]] = {
         # k, v, k_planes, vt_planes, bkv, s_len, head_dim, stream
         "attention_operand_planes": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
     },
+    "selective_scan": {
+        # u, dt, z, b, c, a, dskip, dt_bias, y, batch, seq, d_inner, the batch and
+        # token strides of u, dt, z, b and c, dtype (0 bf16, 1 f32), stream
+        "selective_scan_fwd": ([_P] * 9 + [_I, _I, _I] + [_L] * 10 + [_I, _P], _I),
+    },
 }
 
 _LOCK = threading.Lock()

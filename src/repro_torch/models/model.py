@@ -194,7 +194,8 @@ def from_reference_params(cfg, tree: dict, *, device=None) -> Model:
 
 # Leaves drawn around one by ``seeded_numpy_params``: norm weights, Mamba's
 # skip D, the mLSTM forget-gate bias (the reference's ones).
-_ONES_LIKE = ("ln1", "ln2", "final_norm", "q_norm", "k_norm", "out_norm", "D", "b_fgate")
+_ONES_LIKE = ("ln1", "ln2", "final_norm", "q_norm", "k_norm", "out_norm", "D", "b_fgate",
+              "dt_norm", "b_norm", "c_norm")
 
 
 def seeded_numpy_params(cfg, seed: int) -> dict:
@@ -372,7 +373,8 @@ def _mixer_block(cfg, x, bp, kind, positions, attention):
         with obs.span("model.attn"):
             y = blocks.attn_apply(bp["mixer"], h, cfg, positions, attention)
     elif kind == "mamba":
-        y = ssm.mamba_apply(bp["mixer"], h, cfg)
+        with obs.span("model.mamba"):
+            y = ssm.mamba_apply(bp["mixer"], h, cfg)
     elif kind == "mlstm":
         y = xlstm.mlstm_apply(bp["mixer"], h, cfg)
     else:

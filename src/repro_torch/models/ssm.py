@@ -1,12 +1,21 @@
 """Mamba-1 selective-SSM block (Jamba's SSM layer), chunked for long seqs.
 
-The forward walks the sequence in chunks of ``cfg.scan_chunk`` (a Python
+The forward's scan takes one of two routes, fixed by its inputs, never by
+a failure: plain CUDA tensors with no gradient to take (the serving
+prefill) run the hand-written kernel L3
+(``kernels.selective_scan.kernel.selective_scan_fwd``), whose state never
+leaves the registers; everything else (the CPU, DTensors under a mesh,
+training) walks the sequence in chunks of ``cfg.scan_chunk`` (a Python
 loop where the reference scans) and scans each chunk's affine maps
 h -> a*h + b with a log-depth (Hillis-Steele) inclusive scan: the
 reference's ``lax.associative_scan`` has no public torch counterpart, and
 the two sum in another order, so they agree to f32 rounding, not bit for
 bit.  Decode carries (conv window, ssm state) in place and is O(1) per
 token.
+
+``cfg.mamba_inner_norms`` (Jamba's published mixer) puts an RMSNorm with
+its own weight on dt (dt_rank wide), on B and on C (d_state wide) after
+``x_proj``, before ``dt_proj`` and the scan.
 """
 
 from __future__ import annotations
@@ -14,16 +23,19 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
+from repro_torch.kernels.selective_scan import kernel as L3
 from repro_torch.models.layers import (
     ParamBlock,
     dense_param,
     ones_param,
     param_device,
+    rms_norm,
     zeros_param,
 )
 from repro_torch.parallel.sharding import is_dtensor, local_blocks, reduce_partial, shard_hint
 
-__all__ = ["Mamba", "mamba_apply", "mamba_cache_init", "mamba_decode"]
+__all__ = ["Mamba", "mamba_apply", "mamba_cache_init", "mamba_decode", "scan_route"]
 
 
 class Mamba(ParamBlock):
@@ -52,6 +64,10 @@ class Mamba(ParamBlock):
         self.add("A_log", (a_log.expand(shape).to(dtype).clone(), axes))
         self.add("D", ones_param((di,), ("inner",), **mk))
         self.add("out_proj", dense_param(gen, (di, d), ("inner", "embed"), **mk))
+        if cfg.mamba_inner_norms:
+            self.add("dt_norm", ones_param((dtr,), (None,), **mk))
+            self.add("b_norm", ones_param((n,), (None,), **mk))
+            self.add("c_norm", ones_param((n,), (None,), **mk))
 
 
 def _causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -92,35 +108,54 @@ def _ssm_chunk(h0, a_c, b_c):
     return h, h[:, -1]
 
 
-def mamba_apply(p, x, cfg, chunk: int | None = None) -> torch.Tensor:
-    """Full-sequence selective SSM. x: (B, S, D)."""
-    b, s, d = x.shape
-    di = cfg.mamba_expand * d
+def _project(p, x_act, cfg):
+    """dt_proj's product (before its bias), B and C of the convolution's
+    activations, in their type: x_proj, then, with ``cfg.mamba_inner_norms``,
+    the RMSNorms on dt, B and C."""
+    dtr, n = cfg.dt_rank, cfg.mamba_d_state
+    dbc = x_act @ p["x_proj"].to(x_act.dtype)  # (..., dtr + 2N)
+    dt_low, b_ssm, c_ssm = dbc[..., :dtr], dbc[..., dtr:dtr + n], dbc[..., dtr + n:]
+    if cfg.mamba_inner_norms:
+        dt_low = rms_norm(dt_low, p["dt_norm"])
+        b_ssm = rms_norm(b_ssm, p["b_norm"])
+        c_ssm = rms_norm(c_ssm, p["c_norm"])
+    return reduce_partial(dt_low @ p["dt_proj"].to(x_act.dtype)), b_ssm, c_ssm
+
+
+def scan_route(x_act, a_log, *others) -> str:
+    """The scan's route for its operands, the convolution's (B, S, d_inner)
+    activations and the (d_inner, N) ``A_log`` first: ``"kernel"`` (L3)
+    for plain CUDA tensors of which no gradient is to be taken and whose
+    type and widths the kernel takes (a type in ``L3.DTYPES``, N in
+    ``L3.STATE_SIZES``, d_inner a multiple of ``L3.CHANNEL_MULTIPLE``, at
+    most ``L3.MAX_BATCH`` sequences), ``"chunked"`` otherwise."""
+    tensors = (x_act, a_log, *others)
+    if x_act.device.type != "cuda" or any(is_dtensor(t) for t in tensors):
+        return "chunked"
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return "chunked"
+    bsz, _, di = x_act.shape
+    if (x_act.dtype not in L3.DTYPES or a_log.shape[-1] not in L3.STATE_SIZES
+            or di % L3.CHANNEL_MULTIPLE or bsz > L3.MAX_BATCH):
+        return "chunked"
+    return "kernel"
+
+
+def _chunked_scan(p, x_act, z, dt_raw, b_ssm, c_ssm, cfg, chunk: int) -> torch.Tensor:
+    """The scan in chunks of Hillis-Steele scans, gated: (B, S, di) in
+    x_act's type."""
+    b, s, di = x_act.shape
     n = cfg.mamba_d_state
-    dtr = cfg.dt_rank
-    chunk = chunk or cfg.scan_chunk
-    dtype = x.dtype
-
-    xz = x @ p["in_proj"].to(dtype)  # (B, S, 2*di)
-    x_in, z = xz.chunk(2, dim=-1)
-    x_in = shard_hint(x_in, "batch", None, "inner")
-    x_conv = _causal_depthwise_conv(x_in, p["conv_w"].to(dtype), p["conv_b"].to(dtype))
-    x_act = F.silu(x_conv)
-
-    dbc = x_act @ p["x_proj"].to(dtype)  # (B, S, dtr + 2N)
-    dt_low = dbc[..., :dtr]
-    b_ssm = dbc[..., dtr:dtr + n].float()  # (B, S, N)
-    c_ssm = dbc[..., dtr + n:].float()
-    dt_raw = reduce_partial(dt_low @ p["dt_proj"].to(dtype)).float()
-    dt = F.softplus(dt_raw + p["dt_bias"].float())  # (B, S, di)
+    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())  # (B, S, di)
     a_mat = -torch.exp(p["A_log"].float())  # (di, N)
+    b_ssm, c_ssm = b_ssm.float(), c_ssm.float()  # (B, S, N)
 
     if s % chunk:
         chunk = s  # short sequences: a single chunk
     xf = x_act.float()
     # the (B, c, di, N) chunk tensors' type (gates and decays in f32 first)
     sdt = getattr(torch, cfg.mamba_state_dtype)
-    h = torch.zeros((b, di, n), dtype=torch.float32, device=x.device)
+    h = torch.zeros((b, di, n), dtype=torch.float32, device=x_act.device)
     ys = []
     for c0 in range(0, s, chunk):
         dt_c, b_c, c_c, x_c = (t[:, c0:c0 + chunk] for t in (dt, b_ssm, c_ssm, xf))
@@ -131,8 +166,29 @@ def mamba_apply(p, x, cfg, chunk: int | None = None) -> torch.Tensor:
         h = h_last.float()
     y = torch.cat(ys, dim=1)
 
-    y = (y + xf * p["D"].float()).to(dtype)
-    y = y * F.silu(z)
+    y = (y + xf * p["D"].float()).to(x_act.dtype)
+    return y * F.silu(z)
+
+
+def mamba_apply(p, x, cfg, chunk: int | None = None) -> torch.Tensor:
+    """Full-sequence selective SSM. x: (B, S, D)."""
+    dtype = x.dtype
+
+    xz = x @ p["in_proj"].to(dtype)  # (B, S, 2*di)
+    x_in, z = xz.chunk(2, dim=-1)
+    x_in = shard_hint(x_in, "batch", None, "inner")
+    x_conv = _causal_depthwise_conv(x_in, p["conv_w"].to(dtype), p["conv_b"].to(dtype))
+    x_act = F.silu(x_conv)
+    dt_raw, b_ssm, c_ssm = _project(p, x_act, cfg)
+
+    with obs.span("model.mamba.scan"):
+        operands = (x_act, p["A_log"], z, dt_raw, b_ssm, c_ssm, p["D"], p["dt_bias"])
+        if scan_route(*operands) == "kernel":
+            obs.add("mamba.kernel_layers", 1)
+            y = L3.selective_scan_fwd(x_act, dt_raw, z, b_ssm, c_ssm, -torch.exp(p["A_log"].float()),
+                                   p["D"], p["dt_bias"])
+        else:
+            y = _chunked_scan(p, x_act, z, dt_raw, b_ssm, c_ssm, cfg, chunk or cfg.scan_chunk)
     return y @ p["out_proj"].to(dtype)
 
 
@@ -153,8 +209,6 @@ def mamba_cache_init(cfg, batch: int, stack: int, dtype, device=None) -> tuple[d
 def mamba_decode(p, x, cache, cfg) -> tuple[torch.Tensor, dict]:
     """One-token decode. x: (B, 1, D); ``cache`` holds one stage's views,
     conv (B, K-1, di) and ssm (B, di, N), which are written in place."""
-    dtr = cfg.dt_rank
-    n = cfg.mamba_d_state
     dtype = x.dtype
 
     xz = x[:, 0] @ p["in_proj"].to(dtype)  # (B, 2di)
@@ -163,12 +217,9 @@ def mamba_decode(p, x, cache, cfg) -> tuple[torch.Tensor, dict]:
     x_conv = torch.einsum("bkd,kd->bd", window, p["conv_w"].to(dtype)) + p["conv_b"].to(dtype)
     x_act = F.silu(x_conv)
 
-    dbc = x_act @ p["x_proj"].to(dtype)
-    dt_low = dbc[..., :dtr]
-    b_ssm = dbc[..., dtr:dtr + n].float()
-    c_ssm = dbc[..., dtr + n:].float()
-    dt_raw = reduce_partial(dt_low @ p["dt_proj"].to(dtype)).float()
-    dt = F.softplus(dt_raw + p["dt_bias"].float())  # (B, di)
+    dt_raw, b_ssm, c_ssm = _project(p, x_act, cfg)
+    b_ssm, c_ssm = b_ssm.float(), c_ssm.float()
+    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())  # (B, di)
     a_mat = -torch.exp(p["A_log"].float())
     decay = torch.exp(dt[..., None] * a_mat)  # (B, di, N)
     h = decay * cache["ssm"] + (dt * x_act.float())[..., None] * b_ssm[:, None, :]

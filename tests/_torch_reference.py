@@ -298,13 +298,16 @@ def build_models_reference() -> dict:
 
     from repro.configs.registry import ARCH_IDS, get_arch
     from repro.models import model as RM
+    from repro_torch.configs.registry import get_arch as port_arch
     from repro_torch.models.model import seeded_numpy_params
 
     archs = {}
     for arch in ARCH_IDS:
         case = models_case(arch, get_arch(arch).reduced())
         cfg = case["cfg"]
-        params = jax.tree.map(jnp.asarray, seeded_numpy_params(cfg, MODELS["seed"]))
+        # drawn over the port's shapes, which the port's config gives
+        port_cfg = models_case(arch, port_arch(arch).reduced())["cfg"]
+        params = jax.tree.map(jnp.asarray, seeded_numpy_params(port_cfg, MODELS["seed"]))
         tokens = jnp.asarray(case["tokens"])
         fwd, _ = RM.forward(cfg, params, tokens)
         cache, _ = RM.init_cache(cfg, tokens.shape[0], tokens.shape[1])
@@ -380,11 +383,13 @@ def reference_train_run(arch: str, seq: int, steps: int) -> dict:
     from repro.configs.registry import get_arch
     from repro.models import model as RM
     from repro.optim import adamw
+    from repro_torch.configs.registry import get_arch as port_arch
     from repro_torch.models.model import seeded_numpy_params
 
     cfg = train_cfg(get_arch(arch).reduced())
     opt_cfg = adamw.AdamWConfig()
-    params = jax.tree.map(jnp.asarray, seeded_numpy_params(cfg, TRAIN["seed"]))
+    params = jax.tree.map(jnp.asarray,
+                          seeded_numpy_params(train_cfg(port_arch(arch).reduced()), TRAIN["seed"]))
     opt_state = adamw.init_state(opt_cfg, params)
     value_and_grad = jax.jit(lambda p, b: jax.value_and_grad(
         lambda q: RM.loss_fn(cfg, q, b), has_aux=True)(p))

@@ -105,8 +105,9 @@ def test_checkpoint_bf16_leaves_round_trip(tmp_path):
 
 
 def _ref_train_state(cfg, seed):
-    """A small f32 train state of the JAX package (params of ``cfg`` and
-    AdamW moments after nothing), as numpy-loadable arrays."""
+    """A small f32 train state of the JAX package (params of the port's
+    ``cfg``, whose shapes both packages share, and AdamW moments after
+    nothing), as numpy-loadable arrays."""
     params = jax.tree.map(jnp.asarray, TM.seeded_numpy_params(cfg, seed))
     opt = RA.init_state(RA.AdamWConfig(), params)
     opt = {"m": jax.tree.map(lambda p: p * 0.5, params), "v": jax.tree.map(jnp.square, params),
@@ -123,7 +124,7 @@ def test_port_checkpoint_restores_in_the_reference(tmp_path):
     state = {"params": params, "opt_state": adamw.init_state(adamw.AdamWConfig(), params)}
     state["opt_state"]["m"] = adamw.tree_map(lambda p: p.detach() * 0.5, params)
     path = CheckpointManager(tmp_path).save(5, state, extra={"data_step": 5})
-    like = _ref_train_state(ref_get_arch("jamba_v01_52b").reduced(), 0)
+    like = _ref_train_state(get_arch("jamba_v01_52b").reduced(), 0)
     restored, extra = RefCheckpointManager(tmp_path).restore(5, like)
     assert extra == {"data_step": 5}
     want = {k: v.detach().numpy() for k, v in flat_keys(state).items()}
@@ -139,7 +140,7 @@ def test_port_checkpoint_restores_in_the_reference(tmp_path):
 
 
 def test_reference_checkpoint_restores_in_the_port(tmp_path):
-    state = _ref_train_state(ref_get_arch("mixtral_8x7b").reduced(), 2)
+    state = _ref_train_state(get_arch("mixtral_8x7b").reduced(), 2)
     RefCheckpointManager(tmp_path).save(3, state, extra={"data_step": 3})
     like = adamw.tree_map(lambda a: torch.empty(a.shape, device="meta"), state)
     step, restored, extra = CheckpointManager(tmp_path).restore_latest(like)

@@ -1320,3 +1320,179 @@ def test_compact_moe_matches_capacity_moe_on_the_card(card, monkeypatch, capacit
     print(f"compact against capacity, capacity factor {capacity_factor}: relative L2 {rel!r}")
     assert rel <= COMPACT_BF16_REL, rel
 
+
+
+# ---------------------------------------------------------------------------
+# L3: Mamba's selective scan, at Jamba-Mini's width
+# ---------------------------------------------------------------------------
+
+# Relative L2 over the whole (1, 7680, 8192) output.  float32: the roundings
+# of up to S steps of the recurrence (exp2 within 2 ulp, the products'),
+# about 1e-7 each, grow as sqrt(S) ~ 90 in the channels that keep their
+# state; the chunked route sums the same terms in another order.  bf16
+# against the float64 recurrence: one rounding of y to bf16 (at most 2^-9
+# of each element) beside the float32 error.  bf16 against the chunked
+# route: that route rounds three times more in bf16 (y before the gate,
+# silu(z), their product).
+SCAN_F32_REL = 2e-5
+SCAN_BF16_REF_REL = 2.0 ** -9 + SCAN_F32_REL
+SCAN_BF16_CHUNKED_REL = 4 * 2.0 ** -9
+
+
+def _scan_operands(card, dtype, b=1, s=7680, di=8192, seed=11):
+    """The reference's long-memory draws: log(delta |A|) spreads about 3.7
+    around 0, so some (channel, state) pairs keep their state all along."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+
+    def draw(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=card) * scale
+
+    return (draw(b, s, di).to(dtype), draw(b, s, di).to(dtype), draw(b, s, di).to(dtype),
+            draw(b, s, 16).to(dtype), draw(b, s, 16).to(dtype), -torch.exp(draw(di, 16, scale=2.0)),
+            1 + 0.1 * draw(di), draw(di, scale=3.0))
+
+
+def _rel_l2(got, want) -> float:
+    return ((got.double() - want.double()).norm() / want.double().norm()).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_at_jamba_width(card, dtype):
+    """L3 at d_inner 8192, N 16, S 7680 against the float64 recurrence
+    (``ref.py``), the chunked route of ``models/ssm.py`` and its plain
+    version; one launch."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.selective_scan import kernel as SS
+    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+    from repro_torch.models import ssm
+
+    ops = _scan_operands(card, dtype)
+    before = SS.selective_scan_fwd.launches
+    got = SS.selective_scan_fwd(*ops)
+    assert SS.selective_scan_fwd.launches == before + 1
+    assert got.dtype == dtype and got.shape == ops[0].shape
+    want = selective_scan_ref(*ops)
+    u, dt, z, b, c, a, d, bias = ops
+    cfg = dataclasses.replace(get_arch("jamba_v01_52b"), mamba_inner_norms=True)
+    chunked = ssm._chunked_scan({"A_log": torch.log(-a), "D": d, "dt_bias": bias}, u, z, dt, b, c,
+                                cfg, cfg.scan_chunk)
+    plain = SS.selective_scan_fwd_plain(*ops)
+    assert SS.selective_scan_fwd.launches == before + 1
+    rel_ref, rel_chunked, rel_plain = (_rel_l2(got, w) for w in (want, chunked, plain))
+    print(f"L3 {dtype}: relative L2 against float64 {rel_ref:.3e}, the chunked route "
+          f"{rel_chunked:.3e}, the plain version {rel_plain:.3e}")
+    if dtype == torch.float32:
+        assert max(rel_ref, rel_chunked, rel_plain) <= SCAN_F32_REL
+    else:
+        assert rel_ref <= SCAN_BF16_REF_REL and rel_plain <= SCAN_BF16_REF_REL
+        assert rel_chunked <= SCAN_BF16_CHUNKED_REL
+
+
+@pytest.mark.parametrize("b,s,di", [(1, 1, 32), (3, 70, 64), (2, 129, 96)])
+def test_selective_scan_ragged_and_strided(card, b, s, di):
+    """Lengths off the kernel's 64-token chunk, several sequences, and z,
+    B and C as views into their products' outputs (row strides), equal to
+    contiguous operands bit for bit and within the float32 tolerance of
+    the float64 recurrence."""
+    from repro_torch.kernels.selective_scan import kernel as SS
+    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+
+    u, dt, z, bm, cm, a, d, bias = _scan_operands(card, torch.float32, b, s, di, seed=s)
+    xz = torch.cat([u, z], dim=-1)
+    dbc = torch.cat([torch.zeros(b, s, 8, device=card), bm, cm], dim=-1)
+    strided = SS.selective_scan_fwd(xz[..., :di], dt, xz[..., di:], dbc[..., 8:24], dbc[..., 24:],
+                                    a, d, bias)
+    got = SS.selective_scan_fwd(u, dt, z, bm, cm, a, d, bias)
+    assert torch.equal(strided, got)
+    assert _rel_l2(got, selective_scan_ref(u, dt, z, bm, cm, a, d, bias)) <= SCAN_F32_REL
+
+
+def test_selective_scan_route_on_the_card(card):
+    """``mamba_apply`` launches L3 for CUDA tensors without gradients, the
+    chunked scan under gradients, for CPU tensors and for a state width
+    outside L3's contract; the routes agree in float32."""
+    import dataclasses
+
+    from repro_torch import obs
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.selective_scan import kernel as SS
+    from repro_torch.models import ssm
+
+    cfg = dataclasses.replace(get_arch("jamba_v01_52b").reduced(), mamba_inner_norms=True)
+    gen = torch.Generator().manual_seed(2)
+    p_cpu = ssm.Mamba(gen, cfg, None).stage(None)
+    x_cpu = torch.randn(2, 100, cfg.d_model, generator=gen)
+    p = {k: v.detach().to(card).requires_grad_() for k, v in p_cpu.items()}
+    x = x_cpu.to(card)
+    before = SS.selective_scan_fwd.launches
+    with torch.inference_mode(), obs.tracing():
+        fused = ssm.mamba_apply(p, x, cfg)
+        assert obs.counters() == {"mamba.kernel_layers": 1}
+    assert SS.selective_scan_fwd.launches == before + 1
+    with torch.enable_grad():
+        chunked = ssm.mamba_apply(p, x, cfg)
+        chunked.sum().backward()
+    assert p["A_log"].grad is not None
+    with torch.inference_mode():
+        on_cpu = ssm.mamba_apply(p_cpu, x_cpu, cfg)
+    assert SS.selective_scan_fwd.launches == before + 1
+    assert _rel_l2(fused, chunked.detach()) <= 1e-5
+    assert _rel_l2(fused.cpu(), on_cpu) <= 1e-5
+    # a state width outside L3's contract takes the chunked scan on the card
+    narrow = dataclasses.replace(cfg, mamba_d_state=8)
+    p_narrow = ssm.Mamba(gen, narrow, None).stage(None)
+    with torch.inference_mode():
+        on_card = ssm.mamba_apply({k: v.to(card) for k, v in p_narrow.items()}, x, narrow)
+        assert _rel_l2(on_card.cpu(), ssm.mamba_apply(p_narrow, x_cpu, narrow)) <= 1e-5
+    assert SS.selective_scan_fwd.launches == before + 1
+
+
+def test_jamba_width_two_layers_on_the_card(card):
+    """Jamba-Mini's widths in bf16 over two layers, a Mamba mixer with the
+    16-expert MoE and an attention layer with a dense MLP, through
+    ``model.forward`` (L3 once, K7 once, the compact MoE once) at B 2,
+    S 2048, against the benchmark's float32 reference, each prompt held to
+    its nearest routing path within a 0.25 router margin.  Within 3e-2
+    relative L2: bf16 activations rounded at every step of two layers
+    (the benchmark's cells read 2-5% at 16-36 layers); a row on a wrong
+    expert or a lost state reads O(1)."""
+    import dataclasses
+    import sys
+    from pathlib import Path
+
+    from repro_torch import obs
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.selective_scan import kernel as SS
+
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    from portbench import check, harness
+
+    family = harness.load_module(harness.PKG / "reference" / "jamba.py")
+    model = {"n_layers": 2, "d_model": 4096, "num_heads": 32, "num_kv_heads": 8, "head_dim": 128,
+             "d_ff": 14336, "vocab_size": 65536, "num_experts": 16, "top_k": 2,
+             "mamba_d_state": 16, "mamba_d_conv": 4, "mamba_expand": 2, "mamba_dt_rank": 256,
+             "mamba_inner_norms": True, "attn_layer_offset": 1, "attn_layer_period": 2,
+             "expert_layer_offset": 0, "expert_layer_period": 2, "rms_eps": 1e-6, "window": None}
+    cfg = dataclasses.replace(get_arch("jamba_v01_52b"), n_layers=2,
+                              stage_pattern=(("mamba", "moe"), ("attn", "dense")),
+                              rope_kind="none", renormalize_topk=False, capacity_factor=8.0,
+                              mamba_inner_norms=True).with_dtypes("bfloat16", "bfloat16")
+    weights = harness.draw_weights(family.param_specs(model), 31, card, torch.bfloat16)
+    program = harness.load_program(cfg, weights)
+    tokens = torch.randint(0, 65536, (2, 2048), generator=torch.Generator(device=card).manual_seed(31),
+                           device=card, dtype=torch.int32)
+    scans, k7 = SS.selective_scan_fwd.launches, FA.flash_attention_fwd.tc_launches
+    with obs.tracing():
+        got = harness.forward(cfg, program, tokens).float().cpu()
+        counters = obs.counters()
+    assert SS.selective_scan_fwd.launches == scans + 1
+    assert FA.flash_attention_fwd.tc_launches == k7 + 1
+    assert counters["mamba.kernel_layers"] == 1 and counters["moe.compact_layers"] == 1
+    ref = [c.cpu() for c in family.last_logit_candidates(model, weights, tokens, 0.25)]
+    nums = check.numbers(got, ref)
+    print(f"Jamba width, two layers: {nums}")
+    assert nums["rel_l2_max"] <= 3e-2

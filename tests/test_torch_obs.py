@@ -1,7 +1,8 @@
 """The port's spans and counters (``repro_torch.obs``) on the CPU: off,
 the forward enters no ``record_function`` and counts nothing; on, a
 profiler's trace holds the model stack's span tree, the logits are the
-same bit for bit, and the MoE's counters equal a hand count."""
+same bit for bit, and the MoE's and the Mamba scan's counters equal a
+hand count."""
 
 import dataclasses
 import json
@@ -14,7 +15,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch import obs
 from repro_torch.configs.registry import get_arch
-from repro_torch.models import blocks
+from repro_torch.models import blocks, ssm
 from repro_torch.models.model import Model, forward
 
 LAYERS = 2
@@ -87,9 +88,9 @@ def test_the_counters_off_path_launches_nothing(fresh_counters):
     assert dropped > 0 and obs.counters() == {"moe.slots_dropped": dropped}
 
 
-def _spans(arch: str, tmp_path) -> list:
+def _spans(cfg, tmp_path) -> list:
     with obs.tracing(), profile(activities=[ProfilerActivity.CPU]) as prof:
-        _run(_cfg(arch))
+        _run(cfg)
     path = tmp_path / "trace.json"
     prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text())["traceEvents"]
@@ -110,7 +111,7 @@ def _parents(spans: list) -> Counter:
 
 
 def test_qwen3_span_tree(tmp_path):
-    pairs = _parents(_spans("qwen3_8b", tmp_path))
+    pairs = _parents(_spans(_cfg("qwen3_8b"), tmp_path))
     n = LAYERS
     assert pairs == Counter({
         ("model.forward", None): 1, ("model.embed", "model.forward"): 1,
@@ -121,7 +122,7 @@ def test_qwen3_span_tree(tmp_path):
 
 
 def test_mixtral_span_tree(tmp_path):
-    pairs = _parents(_spans("mixtral_8x7b", tmp_path))
+    pairs = _parents(_spans(_cfg("mixtral_8x7b"), tmp_path))
     n = LAYERS
     assert pairs == Counter({
         ("model.forward", None): 1, ("model.embed", "model.forward"): 1,
@@ -186,3 +187,38 @@ def test_tracing_restores_the_state_and_counts_ints_with_tensors(fresh_counters)
     obs.add("a", 100)  # off: not counted
     assert obs.counters() == {"a": 4, "c": 1}
     assert obs.span("x") is obs.span("y")  # one shared no-op while off
+
+
+def _jamba_cfg():
+    """Jamba reduced, one 8-layer period: Mamba in 7 layers, attention at 4,
+    the MoE at the odd layers; the inner norms on, no RoPE."""
+    return dataclasses.replace(get_arch("jamba_v01_52b").reduced(), mamba_inner_norms=True,
+                               rope_kind="none")
+
+
+def test_jamba_span_tree(tmp_path):
+    pairs = _parents(_spans(_jamba_cfg(), tmp_path))
+    assert pairs == Counter({
+        ("model.forward", None): 1, ("model.embed", "model.forward"): 1,
+        ("model.mamba", "model.forward"): 7, ("model.mamba.scan", "model.mamba"): 7,
+        ("model.norm", "model.mamba"): 3 * 7,  # dt, B and C
+        ("model.attn", "model.forward"): 1, ("model.mlp", "model.forward"): 4,
+        ("model.moe", "model.forward"): 4, ("model.moe.route", "model.moe"): 4,
+        ("model.moe.dispatch", "model.moe"): 4, ("model.moe.experts", "model.moe"): 4,
+        ("model.moe.combine", "model.moe"): 4,
+        ("model.norm", "model.forward"): 2 * 8 + 1, ("model.head", "model.forward"): 1})
+
+
+def test_mamba_kernel_layers_count_the_fused_calls(monkeypatch):
+    """One count a Mamba layer whose scan takes the fused route (forced
+    here: on a CPU tensor L3's wrapper runs its plain version), none on
+    the chunked route; the logits agree to float32 rounding."""
+    cfg = _jamba_cfg()
+    with obs.tracing():
+        chunked = _run(cfg)
+        assert "mamba.kernel_layers" not in obs.counters()
+    monkeypatch.setattr(ssm, "scan_route", lambda *operands: "kernel")
+    with obs.tracing():
+        fused = _run(cfg)
+        assert obs.counters()["mamba.kernel_layers"] == 7
+    torch.testing.assert_close(fused, chunked, rtol=1e-5, atol=1e-5)

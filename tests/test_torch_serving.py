@@ -73,13 +73,26 @@ def _ref_arch(arch):
 # ---------------------------------------------------------------------------
 
 
+# Fields of the port's config that the reference's has not, with the value
+# every registry entry holds: the one at which the port computes the
+# reference's function (Jamba's inner norms, which a benchmark config turns
+# on).
+PORT_ONLY_FIELDS = {"mamba_inner_norms": False}
+
+
+def _shared(cfg) -> dict:
+    return {k: v for k, v in dataclasses.asdict(cfg).items() if k not in PORT_ONLY_FIELDS}
+
+
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_arch_config_equals_reference(arch):
     got, want = get_arch(arch), _ref_arch(arch)
-    assert [f.name for f in dataclasses.fields(got)] == [
+    assert [f.name for f in dataclasses.fields(got) if f.name not in PORT_ONLY_FIELDS] == [
         f.name for f in dataclasses.fields(want)]
-    assert dataclasses.asdict(got) == dataclasses.asdict(want)
-    assert dataclasses.asdict(got.reduced()) == dataclasses.asdict(want.reduced())
+    for cfg in (got, got.reduced()):
+        assert {k: getattr(cfg, k) for k in PORT_ONLY_FIELDS} == PORT_ONLY_FIELDS
+    assert _shared(got) == dataclasses.asdict(want)
+    assert _shared(got.reduced()) == dataclasses.asdict(want.reduced())
     assert (got.n_stages, got.dt_rank) == (want.n_stages, want.dt_rank)
 
 
