@@ -178,6 +178,17 @@ Phases (any mismatch exits non-zero; nothing is caught):
    ``forward(last_only=True)`` at B = 1, S = 7680: 7 L3 launches, 1 K7
    bf16 launch and no other kernel, finite logits, its wall beside the
    same forward on the chunked scan.
+6c. L4 (``norm_path_check``): the row norm at the long prompt's hidden
+   rows (7680, 4096) bf16 and the q/k pass at Qwen3-8B's q and k of a
+   7680-token prompt (read in place from the einsum's permuted views, with
+   their per-head norms), each one launch, against its plain version (the
+   norm at most one bf16 ulp apart, both within 1e-3 relative L2), timed
+   beside it, beside the torch route's float32 chains, beside
+   ``torch.nn.functional.rms_norm`` and beside the byte bound.  Phases 6,
+   6b and 6c count L4 as a kernel of their paths; phase 6 runs its Qwen3-8B
+   forward once more with the norms and RoPE on their torch route, which
+   the mesh and training take, and phase 8 and phase 7's independent
+   cross-entropy use that route.
 7. The training path (``training_path_check``), after phase 6b's weights
    are freed, with the same count discipline: every count must read 0 (the
    loss takes the torch attention route; K7 has no backward).  The ten
@@ -244,13 +255,16 @@ K7 bf16's 38 and every other 0; L1 and L2 with their launches on the
 design-space path, their first, and the XLA program each computes as
 their "reference"; L3 with its launches on phase 6b's Jamba-width forward,
 its first, its reduced launches on the model path, its time at the
-Jamba cell's scan shape, and its "reference"), the ``nvidia-smi`` line and
+Jamba cell's scan shape, and its "reference"; L4's two entry points with
+their launches on the model path, their times at phase 6c's shapes, the
+torch route's, and their "reference"), the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when no
 CUDA device is available or when the repository's ``src/`` is missing.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -286,7 +300,7 @@ KERNELS = (
     "ws_activity_toggles", "ws_task_toggles", "strip_toggles", "operand_stream_toggles",
     "stream_toggles", "ws_gemm_tf32", "flash_attention_tf32", "attention_operand_planes",
     "ws_gemm_tc", "gemm_operand_planes", "flash_attention_tc", "ws_lane_toggles",
-    "stream_lane_toggles", "selective_scan_fwd",
+    "stream_lane_toggles", "selective_scan_fwd", "rms_norm_fwd", "qk_rope_fwd",
 )
 # The f32 routes (K6 also bf16 with K or N not a multiple of 8) and K7's
 # prep: timed at the main paths' shapes, launched on none of the profiling
@@ -311,7 +325,8 @@ WIDE_LOADS = ("stream_toggles_kernel", "strip_toggles_kernel")
 # Kernels ptxas must report with no spill: the toggle counters and K7's f32
 # kernel (Q's small plane, P's two planes and both accumulators live in
 # registers).
-NO_SPILL = INT_SASS + (("flash_attention", "flash_attention_tf32_kernel"),)
+NO_SPILL = INT_SASS + (("flash_attention", "flash_attention_tf32_kernel"),
+                       ("rms_norm", "rms_norm_rows_kernel"))
 SASS_OPS = {"POPC": r"\bPOPC\b", "SHFL": r"\bSHFL\.", "LDG.E.128": r"\bLDG\.E(?:\.\w+)*\.128\b",
             "REDUX": r"\bREDUX\b", "VOTE": r"\bVOTE\b"}
 # Tolerances of the float kernels against their plain versions (f32 math
@@ -538,6 +553,7 @@ def launch_counters() -> dict:
     ``launches`` there is the sum of both GEMM (or attention) routes."""
     from repro_torch.kernels.activity_profile import kernel as K
     from repro_torch.kernels.flash_attention import kernel as FA
+    from repro_torch.kernels.rms_norm import kernel as L4
     from repro_torch.kernels.selective_scan import kernel as SS
     from repro_torch.kernels.toggle_count import kernel as TC
     from repro_torch.kernels.ws_matmul import kernel as WM
@@ -554,6 +570,8 @@ def launch_counters() -> dict:
         ws_lane_toggles=(K.ws_lane_toggles, "launches"),
         stream_lane_toggles=(K.stream_lane_toggles, "launches"),
         selective_scan_fwd=(SS.selective_scan_fwd, "launches"),
+        rms_norm_fwd=(L4.rms_norm_fwd, "launches"),
+        qk_rope_fwd=(L4.qk_rope_fwd, "launches"),
     )
     return counters
 
@@ -566,6 +584,22 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     return {name: getattr(fn, attr) for name, (fn, attr) in launch_counters().items()}
+
+
+@contextlib.contextmanager
+def torch_norms():
+    """The models' norms and RoPE on their torch route (the float32
+    chains), as the mesh and training paths take them: L4 sums its squares
+    in another order, so a forward to be held bit for bit to one of those
+    paths runs on this route."""
+    from repro_torch.models import layers
+
+    real = layers.norm_route
+    layers.norm_route = lambda *tensors, rotate=False: "torch"
+    try:
+        yield
+    finally:
+        layers.norm_route = real
 
 
 def host_timed(fn):
@@ -906,9 +940,13 @@ def model_path_check(*, dev, smi) -> dict:
     check(counts["selective_scan_fwd"] == want_scan,
           f"model path: L3 launched {counts['selective_scan_fwd']} times, want {want_scan} (two "
           f"forwards per reduced arch)")
+    # L4 on every RMSNorm and the q/k passes whose rows it takes
+    check(counts["rms_norm_fwd"] > 0 and counts["qk_rope_fwd"] > 0, f"model path: L4 launched "
+          f"{counts['rms_norm_fwd']} row norms and {counts['qk_rope_fwd']} q/k passes")
     others = {k: v for k, v in counts.items() if v and not k.startswith(("flash_attention",
                                                                           "attention_operand",
-                                                                          "selective_scan"))}
+                                                                          "selective_scan",
+                                                                          "rms_norm", "qk_rope"))}
     check(not others, f"model path launched other kernels: {others}")
 
     # 2. The reduced archs against the JAX package's logits, and against the
@@ -949,6 +987,14 @@ def model_path_check(*, dev, smi) -> dict:
     (plain, _), plain_ms = host_timed(lambda: M.forward(cfg, params, tokens, last_only=True,
                                                         attention="torch"))
     route_rel = rel_l2(full, plain)
+    # the same forward with the norms and RoPE on their torch route: phase 8
+    # holds the mesh to it bit for bit
+    with torch_norms():
+        (torch_norms_logits, _), torch_norms_ms = host_timed(
+            lambda: M.forward(cfg, params, tokens, last_only=True))
+    norms_rel = rel_l2(full, torch_norms_logits)
+    check(norms_rel <= MODEL_BF16_REL, f"{MODEL_ARCH}: L4 against the norms' torch route, "
+          f"relative L2 {norms_rel!r} beyond {MODEL_BF16_REL}")
     check(route_rel <= MODEL_BF16_REL, f"{MODEL_ARCH}: K7 route against torch route, relative "
           f"L2 {route_rel!r} beyond {MODEL_BF16_REL}")
     argmax_agree = (full.argmax(-1) == plain.argmax(-1)).float().mean().item()
@@ -1036,7 +1082,8 @@ def model_path_check(*, dev, smi) -> dict:
           f"card in {init_s:.2f} s): forward(last_only) B={MODEL_BATCH} S={MODEL_SEQ} on the K7 route "
           f"{forward_ms:.1f} ms the first call, {warm_ms:.1f} ms warm "
           f"({MODEL_BATCH * MODEL_SEQ / warm_ms * 1e3:,.0f} tokens/s), torch route {plain_ms:.1f} ms; relative L2 between the routes {route_rel!r} (within "
-          f"{MODEL_BF16_REL}), argmax agreement {argmax_agree:.3f}; traced forward: wall "
+          f"{MODEL_BF16_REL}), argmax agreement {argmax_agree:.3f}; the norms and RoPE on their "
+          f"torch route {torch_norms_ms:.1f} ms, relative L2 {norms_rel!r} from L4's; traced forward: wall "
           f"{fwd_wall:.1f} ms (profiler on), device busy {fwd_busy:.1f} ms = "
           f"{100 * fwd_busy / fwd_wall:.1f}%, {fwd_events} device events, K7 {k7_traced}; device "
           f"records in three traces {[t[2] for t in traces]}, K7 records "
@@ -1056,7 +1103,8 @@ def model_path_check(*, dev, smi) -> dict:
           f"of the bound), SDPA is_causal {sdpa_ms:.4f} ms, plain {k7_plain_ms:.4f} ms, bound "
           f"{k7_bound:.5f} ms ({k7_by}) | {smi}", flush=True)
     launches = {name: counts[name] for name in ("flash_attention_tf32", "attention_operand_planes",
-                                                "flash_attention_tc", "selective_scan_fwd")}
+                                                "flash_attention_tc", "selective_scan_fwd",
+                                                "rms_norm_fwd", "qk_rope_fwd")}
     print(f"model path launches {launches}", flush=True)
     return {
         "launches": launches,
@@ -1067,7 +1115,7 @@ def model_path_check(*, dev, smi) -> dict:
         "busy_share": {"forward": fwd_busy / fwd_wall, "decode": dec_busy / dec_wall},
         "peak_bytes": peak,
         # phase 8 holds the mesh path's forward to this one, bit for bit
-        "forward_logits": full.cpu(),
+        "forward_logits": torch_norms_logits.cpu(),
         "tokens": tokens.cpu(),
     }
 
@@ -1160,7 +1208,8 @@ def mamba_path_check(*, dev, smi) -> dict:
     check(counts["flash_attention_tc"] == attn_layers,
           f"{MAMBA_ARCH}: K7 bf16 launched {counts['flash_attention_tc']} times, want {attn_layers}")
     others = {k: v for k, v in counts.items() if v and k not in ("selective_scan_fwd",
-                                                                  "flash_attention_tc")}
+                                                                  "flash_attention_tc",
+                                                                  "rms_norm_fwd")}
     check(not others, f"{MAMBA_ARCH}: the forward launched other kernels: {others}")
     _, warm_ms = host_timed(lambda: M.forward(cfg, params, tokens, last_only=True))
     real_route = ssm.scan_route
@@ -1184,6 +1233,131 @@ def mamba_path_check(*, dev, smi) -> dict:
     return {"launches": {"selective_scan_fwd": counts["selective_scan_fwd"]}, "max_abs_err": max_err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "shape": [b, s, di, n]}
+
+
+# L4 (phase 6c): the row norm at the long prompt's hidden rows (7680, 4096)
+# bf16, and the q/k pass at Qwen3-8B's q (1, 32, 7680, 128) and k
+# (1, 8, 7680, 128) with their per-head norms, read in place from the
+# einsum's permuted views, each against its plain version (the card tests'
+# limits: at most one bf16 ulp apart for the norm, NORM_BF16_REL relative L2
+# for both), then timed beside the plain version, the torch route's float32
+# chains (``layers.rms_norm``'s nine launches; ``rms_norm`` then
+# ``apply_rope``), torch.nn.functional.rms_norm (one PyTorch call, which the
+# port never makes) and the byte bound: x read and y written once, with the
+# weights and, for the rotation, the (S, 64) float32 cos and sin tables.
+NORM_ROWS, NORM_WIDTH, NORM_HEAD_DIM = 7680, 4096, 128
+NORM_HEADS, NORM_KV_HEADS = 32, 8
+NORM_BF16_REL = 1e-3
+L4_KERNEL = "rms_norm_rows_kernel"
+
+
+def norm_path_check(*, dev, smi) -> dict:
+    """Phase 6c: L4 against its plain version and timed at the cells'
+    shapes.  Returns, for each entry point, its largest difference from the
+    plain version and its times."""
+    import torch
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.rms_norm import kernel as L4
+    from repro_torch.models import layers
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def draw(*shape, scale=3.0, shift=0.0):
+        return (shift + scale * torch.randn(shape, generator=gen, device=dev)).bfloat16()
+
+    s, d, hd = NORM_ROWS, NORM_WIDTH, NORM_HEAD_DIM
+    x, w = draw(s, d), draw(d, scale=0.3, shift=1.0)
+    # the einsum's (B, S, H, hd) products seen as (B, H, S, hd)
+    q = draw(1, s, NORM_HEADS, hd).permute(0, 2, 1, 3)
+    k = draw(1, s, NORM_KV_HEADS, hd).permute(0, 2, 1, 3)
+    wq, wk = draw(hd, scale=0.3, shift=1.0), draw(hd, scale=0.3, shift=1.0)
+    cos, sin = layers.rope_angles(torch.arange(s, device=dev).expand(1, s), hd, 1e6)
+
+    def qk():
+        return L4.qk_rope_fwd(q, wq, cos, sin), L4.qk_rope_fwd(k, wk, cos, sin)
+
+    def qk_plain():
+        return L4.qk_rope_fwd_plain(q, wq, cos, sin), L4.qk_rope_fwd_plain(k, wk, cos, sin)
+
+    reset_counts()
+    got, (got_q, got_k) = L4.rms_norm_fwd(x, w), qk()
+    counts = read_counts()
+    check(counts["rms_norm_fwd"] == 1 and counts["qk_rope_fwd"] == 2,
+          f"L4: three calls counted {counts['rms_norm_fwd']} row norms and "
+          f"{counts['qk_rope_fwd']} q/k passes")
+    want, (want_q, want_k) = L4.rms_norm_fwd_plain(x, w), qk_plain()
+    ulps = (got.view(torch.int16).int() - want.view(torch.int16).int()).abs().max().item()
+    errors = {"rms_norm_fwd": (rel_l2(got, want), (got.float() - want.float()).abs().max().item()),
+              "qk_rope_fwd": (max(rel_l2(got_q, want_q), rel_l2(got_k, want_k)),
+                              max((a.float() - b.float()).abs().max().item()
+                                  for a, b in ((got_q, want_q), (got_k, want_k))))}
+    check(got.is_contiguous() and got_q.is_contiguous() and got_k.is_contiguous(),
+          "L4: an output is not contiguous")
+    check(ulps <= 1 and errors["rms_norm_fwd"][0] <= NORM_BF16_REL, f"L4 row norm at ({s}, {d}) "
+          f"bf16: {ulps} ulp apart, relative L2 {errors['rms_norm_fwd'][0]!r} from its plain version")
+    check(errors["qk_rope_fwd"][0] <= NORM_BF16_REL, f"L4 q/k pass: relative L2 "
+          f"{errors['qk_rope_fwd'][0]!r} from its plain version, beyond {NORM_BF16_REL}")
+    del got, got_q, got_k, want, want_q, want_k
+
+    def chain_qk():
+        return layers.qk_norm_rope(q, k, wq, wk, cos, sin)
+
+    # Read before each traced call, so that each finds its rows in device
+    # memory and not in the 50 MB L2 that the last call's 63 MB left warm
+    # (a warm read measured the row norm above its byte bound).
+    l2_flush = torch.zeros((L2_FLUSH_BYTES // 4096, 1024), dtype=torch.int32, device=dev)
+
+    def kernel_ms(fn, calls: int = 20) -> float:
+        """L4's device time a call of ``fn`` from device memory: its
+        kernels' records in a ``torch.profiler`` trace of ``calls`` calls,
+        the L2 flushed before each.  A call's host work (the wrapper's
+        checks, about as long as a q/k kernel) bounds the event timing of
+        back-to-back calls; the trace sees the kernels."""
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                l2_flush.sum(dim=1)
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA and L4_KERNEL in e.key) / 1e3 / calls
+        check(total > 0, "torch.profiler recorded no device time of L4")
+        return total
+
+    norm_bytes = 2 * x.numel() * x.element_size() + w.numel() * w.element_size()
+    qk_bytes = (2 * (q.numel() + k.numel()) * q.element_size() + 2 * hd * w.element_size()
+                + 2 * cos.numel() * cos.element_size())
+    out = {}
+    for name, kernel, plain, chain, library, n_bytes in (
+            ("rms_norm_fwd", lambda: L4.rms_norm_fwd(x, w), lambda: L4.rms_norm_fwd_plain(x, w),
+             lambda: layers.rms_norm(x, w), lambda: F.rms_norm(x, (d,), w, 1e-6), norm_bytes),
+            ("qk_rope_fwd", qk, qk_plain, chain_qk, None, qk_bytes)):
+        ms = median_ms(kernel, calls=50)
+        dev_ms = kernel_ms(kernel)
+        plain_ms = median_ms(plain, calls=10)
+        with torch_norms():
+            chain_ms = median_ms(chain, calls=10)
+        library_ms = median_ms(library, calls=50) if library is not None else None
+        bound, by = bound_ms(n_bytes, 0)
+        out[name] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "torch_route_ms": chain_ms,
+                     "library_ms": library_ms, "bound_ms": bound, "bound_by": by,
+                     "max_abs_err": errors[name][1]}
+        shape = f"({s}, {d}) bf16" if name == "rms_norm_fwd" else (
+            f"q (1, {NORM_HEADS}, {s}, {hd}) and k (1, {NORM_KV_HEADS}, {s}, {hd}) bf16, permuted "
+            f"views, with their norms")
+        print(f"  L4 {name} at {shape}: relative L2 from its plain version {errors[name][0]:.3e}"
+              + (f" ({ulps} ulp at most)" if name == "rms_norm_fwd" else "")
+              + f"; device {dev_ms:.4f} ms, {100 * bound / dev_ms:.1f}% of the bound {bound:.5f} ms "
+              f"({by}); {ms:.4f} ms a call back to back (events); plain {plain_ms:.4f} ms, the "
+              f"torch route's chain {chain_ms:.4f} ms"
+              + (f", F.rms_norm {library_ms:.4f} ms" if library_ms is not None else "")
+              + f" | {smi}", flush=True)
+    out["shape"] = [s, d, NORM_HEADS, NORM_KV_HEADS, hd]
+    return out
 
 
 # The training path (phase 7): the ten reduced archs' training in float32
@@ -1370,7 +1544,10 @@ def training_path_check(*, dev, smi) -> dict:
 
     # an independent cross-entropy of the first batch at the initial
     # parameters: the serving forward's f32 logits through F.cross_entropy
-    logits, _ = M.forward(cfg, params, data[0]["tokens"], attention="torch")
+    # (the norms on their torch route, as training takes them: no kernel of
+    # the port runs on this path)
+    with torch_norms():
+        logits, _ = M.forward(cfg, params, data[0]["tokens"], attention="torch")
     ce_ind = F.cross_entropy(logits.reshape(-1, cfg.vocab_size),
                              data[0]["labels"].reshape(-1).long()).item()
     del logits
@@ -1578,8 +1755,9 @@ def mesh_path_check(*, dev, smi, model, training) -> dict:
                 m_logits, m_ms = host_timed(m_forward)
                 counts = read_counts()
                 blocks.COMPACT_MIN_ROWS = 2**62
-                m_plain, m_plain_ms = host_timed(
-                    lambda: M.forward(moe, m_tree, m_plain_tokens, last_only=True)[0])
+                with torch_norms():  # the mesh's route of the norms and RoPE
+                    m_plain, m_plain_ms = host_timed(
+                        lambda: M.forward(moe, m_tree, m_plain_tokens, last_only=True)[0])
             finally:
                 blocks.COMPACT_MIN_ROWS = compact_min_rows
                 torch.use_deterministic_algorithms(False)
@@ -1595,7 +1773,8 @@ def mesh_path_check(*, dev, smi, model, training) -> dict:
     q_full, m_full = q_logits.full_tensor(), m_logits.full_tensor()
     want = model["forward_logits"].to(dev)
     check(torch.equal(q_full, want), f"{MODEL_ARCH} on the 1x1 mesh: logits differ from phase 6's "
-          f"unsharded forward (max |diff| {(q_full.float() - want.float()).abs().max().item()!r})")
+          f"unsharded forward on the norms' torch route (max |diff| "
+          f"{(q_full.float() - want.float()).abs().max().item()!r})")
     check(torch.equal(m_full, m_plain), f"{MESH_MOE_ARCH} on the 1x1 mesh (sharded MoE dispatch): "
           f"logits differ from the single-device branch (max |diff| "
           f"{(m_full.float() - m_plain.float()).abs().max().item()!r})")
@@ -3185,8 +3364,19 @@ def main() -> None:
     # its first main path: the Jamba-width forward
     launches["selective_scan_fwd"] = mamba["launches"]["selective_scan_fwd"]
 
+    # -- phase 6c: L4 at the cells' shapes ------------------------------------------
+    torch.cuda.empty_cache()
+    norms = norm_path_check(dev=dev, smi=smi)
+    for name in ("rms_norm_fwd", "qk_rope_fwd"):
+        t = norms[name]
+        add(name, t["ms"], t["plain_ms"], t["bound_ms"], t["bound_by"], library=t["library_ms"],
+            device=t["device_ms"])
+        max_err[name] = t["max_abs_err"]
+        # its first main path: the model path (phase 6)
+        launches[name] = model["launches"][name]
+
     # -- phase 7: the training path ------------------------------------------------
-    # After phases 6 and 6b, whose bf16 weights were their own and are freed here.
+    # After phases 6, 6b and 6c, whose bf16 tensors were their own and are freed here.
     torch.cuda.empty_cache()
     print(f"phase 7: {torch.cuda.memory_allocated() / 1024 ** 3:.2f} GiB allocated before it",
           flush=True)
@@ -3256,6 +3446,15 @@ def main() -> None:
             "src/repro_torch/csrc/selective_scan.cu",
             "src/repro/models/ssm.py:73",
         ),
+        # no TPU kernel: the reference's RMSNorm and RoPE
+        "rms_norm_fwd": (
+            "src/repro_torch/csrc/rms_norm.cu",
+            "src/repro/models/layers.py:76",
+        ),
+        "qk_rope_fwd": (
+            "src/repro_torch/csrc/rms_norm.cu",
+            "src/repro/models/layers.py:112",
+        ),
     }
     kernels = []
     for name, t in totals.items():
@@ -3307,6 +3506,13 @@ def main() -> None:
             row["reference"] = "an XLA program (lax.associative_scan in the Mamba block), not a Pallas kernel"
             # L3 at the Jamba cell's scan shape (B, S, d_inner, N), bf16
             row["shape"] = mamba["shape"]
+        if name in ("rms_norm_fwd", "qk_rope_fwd"):
+            row["reference"] = ("an XLA program (rms_norm and apply_rope of the model layers), "
+                                "not a Pallas kernel")
+            # the long prompt's rows (S, d) and Qwen3-8B's q and k (H, KV, hd), bf16
+            row["shape"] = norms["shape"]
+            # the torch route's float32 chain of PyTorch passes at the same shapes
+            row["torch_route_ms"] = norms[name]["torch_route_ms"]
         if name in serving["launches"]:
             row["serving_launches"] = serving["launches"][name]
         if name in parts:

@@ -77,6 +77,12 @@ SOURCES: dict[str, dict[str, tuple[list, type]]] = {
         # token strides of u, dt, z, b and c, dtype (0 bf16, 1 f32), stream
         "selective_scan_fwd": ([_P] * 9 + [_I, _I, _I] + [_L] * 10 + [_I, _P], _I),
     },
+    "rms_norm": {
+        # x, weight, cos, sin, y, rows, n1, n2, x's three leading strides, the
+        # tables' batch and token strides, d, eps, dtype (0 bf16, 1 f32),
+        # weight type (-1 none), rope, stream
+        "rms_norm_rows": ([_P] * 5 + [_L, _I, _I] + [_L] * 5 + [_I, _F, _I, _I, _I, _P], _I),
+    },
 }
 
 _LOCK = threading.Lock()

@@ -10,7 +10,10 @@ never by a failure: ``"kernel"`` runs the hand-written K7
 (``kernels.flash_attention.kernel.flash_attention_fwd``: its kernel on a
 CUDA tensor, its plain version on a CPU one) on the KV heads as they are;
 ``"torch"`` runs the reference's program, KV heads repeated, through
-``layers.blockwise_attention`` / ``dense_attention``.  Decode attention,
+``layers.blockwise_attention`` / ``dense_attention``.  Before either, q and
+k take their per-head norms and RoPE in one hand-written L4 pass each
+where ``layers.norm_route`` finds plain CUDA rows with no gradient to
+take (``layers.qk_norm_rope``), else the float32 chains.  Decode attention,
 one query against a cache, stays a torch program, as do the MLP and MoE
 products.  Decode updates the cache in place.
 
@@ -34,14 +37,13 @@ from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
 from repro_torch.models.layers import (
     ACTIVATIONS,
     ParamBlock,
-    apply_rope,
     blockwise_attention,
     dense_attention,
     dense_param,
     mrope_angles,
     ones_param,
     param_device,
-    rms_norm,
+    qk_norm_rope,
     rope_angles,
     zeros_param,
 )
@@ -114,13 +116,9 @@ def _qkv(p, x, cfg, cos, sin):
         q = q + p["bq"].to(x.dtype)[None, :, None, :]
         k = k + p["bk"].to(x.dtype)[None, :, None, :]
         v = v + p["bv"].to(x.dtype)[None, :, None, :]
-    if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"])
-        k = rms_norm(k, p["k_norm"])
-    if cos is not None:
-        with obs.span("model.rope"):
-            q = apply_rope(q, cos, sin)
-            k = apply_rope(k, cos, sin)
+    if cfg.qk_norm or cos is not None:
+        weights = (p["q_norm"], p["k_norm"]) if cfg.qk_norm else (None, None)
+        q, k = qk_norm_rope(q, k, *weights, cos, sin)
     return q, k, v
 
 

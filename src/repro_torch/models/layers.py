@@ -12,6 +12,13 @@ reference's XLA programs: ``blockwise_attention`` walks query and key
 chunks with Python loops where the reference scans, and
 ``dense_attention`` serves short sequences.  On the card the model's
 prefill takes the hand-written K7 instead (``blocks.attn_apply``).
+
+The RMSNorm and RoPE have two routes, fixed by their inputs (``norm_route``),
+never by a failure: plain CUDA tensors with no gradient to take, whose rows
+the hand-written L4 reads in place, run one L4 pass a norm, and one a q or
+k with its norm and rotation (``kernels.rms_norm``); everything else (the
+CPU, DTensors under a mesh, training) runs the float32 chains below, which
+the reference's XLA programs compute.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import obs
+from repro_torch.kernels.rms_norm import kernel as L4
 from repro_torch.parallel.sharding import is_dtensor, replicated
 
 __all__ = [
@@ -37,7 +45,9 @@ __all__ = [
     "dense_param",
     "layer_norm",
     "mrope_angles",
+    "norm_route",
     "ones_param",
+    "qk_norm_rope",
     "rms_norm",
     "rope_angles",
     "zeros_param",
@@ -140,12 +150,32 @@ def zeros_param(shape, axes, *, stack=None, dtype=torch.float32, device=None) ->
 
 
 # ---------------------------------------------------------------------------
-# Norms (f32 inside, the input's type out)
+# Norms (f32 inside, the input's type out; L4 or the float32 chain)
 # ---------------------------------------------------------------------------
 
 
+def norm_route(x: torch.Tensor, *others, rotate: bool = False) -> str:
+    """The route of a row norm over ``x``'s last dim (with ``rotate``, of
+    the q/k norm-and-rotate), its weight and tables among ``others`` (None
+    skipped): ``"kernel"`` (L4) for plain CUDA tensors of which no gradient
+    is to be taken and whose rows L4 reads where they lie (``L4.fits``:
+    bf16 or float32, whole 16-byte vectors within its maximum, 16-byte
+    aligned rows), ``"torch"`` otherwise."""
+    tensors = (x, *(t for t in others if t is not None))
+    if x.device.type != "cuda" or any(is_dtensor(t) for t in tensors):
+        return "torch"
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return "torch"
+    return "kernel" if L4.fits(x, *others, rotate=rotate) else "torch"
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last dim: one L4 pass on its route (``norm_route``),
+    else the float32 chain."""
     with obs.span("model.norm"):
+        if norm_route(x, weight) == "kernel":
+            obs.add("norm.kernel_calls", 1)
+            return L4.rms_norm_fwd(x, weight, eps)
         xf = x.float()
         var = (xf * xf).mean(dim=-1, keepdim=True)
         return (xf * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
@@ -186,6 +216,34 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     c = cos[:, None]
     s = sin[:, None]
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+def qk_norm_rope(q: torch.Tensor, k: torch.Tensor, q_weight, k_weight, cos, sin,
+                 eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
+    """Attention's q and k (B, H, S, D): the per-head RMSNorm with their
+    weights (none if None), then RoPE by ``cos`` and ``sin`` (none if
+    None).  Where both take L4's route (``norm_route``), one L4 pass each
+    (``L4.qk_rope_fwd``), under ``model.rope`` when they rotate and
+    ``model.norm`` when they only normalise; else ``rms_norm`` on each,
+    then ``apply_rope`` on both."""
+    rotate = cos is not None
+    if all(norm_route(x, w, cos, sin, rotate=rotate) == "kernel"
+           for x, w in ((q, q_weight), (k, k_weight))):
+        with obs.span("model.rope" if rotate else "model.norm"):
+            if q_weight is not None:
+                obs.add("norm.kernel_calls", 2)
+            if rotate:
+                obs.add("rope.kernel_calls", 2)
+            return (L4.qk_rope_fwd(q, q_weight, cos, sin, eps),
+                    L4.qk_rope_fwd(k, k_weight, cos, sin, eps))
+    if q_weight is not None:
+        q = rms_norm(q, q_weight, eps)
+        k = rms_norm(k, k_weight, eps)
+    if rotate:
+        with obs.span("model.rope"):
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
+    return q, k
 
 
 def mrope_angles(positions: torch.Tensor, head_dim: int, sections: tuple[int, int, int],

@@ -22,6 +22,7 @@ from repro_torch.kernels.activity_profile.ops import profile_gemm_toggles
 from repro_torch.kernels.activity_profile.ref import profile_gemm_toggles_ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention import kernel as FA
+from repro_torch.kernels.rms_norm import kernel as L4
 from repro_torch.kernels.toggle_count import (
     stream_activity,
     stream_toggle_count,
@@ -1214,7 +1215,9 @@ def test_one_rank_mesh_forward_equals_unsharded_on_the_card(card, tmp_path, monk
     forward bit for bit, with K7 launched through local_map once per
     attention layer; mixtral's MoE takes the sharded dispatch, against the
     unsharded capacity branch.  Both under
-    deterministic algorithms (the MoE's scatter-add accumulates)."""
+    deterministic algorithms (the MoE's scatter-add accumulates), and both
+    on the torch route of the norms and RoPE, which the mesh takes (L4 sums
+    its squares in another order)."""
     import torch.distributed as dist
 
     from repro_torch.configs.registry import get_arch
@@ -1222,8 +1225,9 @@ def test_one_rank_mesh_forward_equals_unsharded_on_the_card(card, tmp_path, monk
     from repro_torch.models import model as TM
     from repro_torch.parallel import sharding as sh
 
-    from repro_torch.models import blocks
+    from repro_torch.models import blocks, layers
 
+    monkeypatch.setattr(layers, "norm_route", lambda *tensors, rotate=False: "torch")
     # the unsharded MoE on its capacity branch, which the sharded branch
     # reproduces; at 2 x 128 tokens it would take the compact path, which
     # packs other row blocks (held to this branch by the compact MoE tests)
@@ -1429,7 +1433,8 @@ def test_selective_scan_route_on_the_card(card):
     before = SS.selective_scan_fwd.launches
     with torch.inference_mode(), obs.tracing():
         fused = ssm.mamba_apply(p, x, cfg)
-        assert obs.counters() == {"mamba.kernel_layers": 1}
+        # the scan on L3, the inner norms of dt, B and C on L4
+        assert obs.counters() == {"mamba.kernel_layers": 1, "norm.kernel_calls": 3}
     assert SS.selective_scan_fwd.launches == before + 1
     with torch.enable_grad():
         chunked = ssm.mamba_apply(p, x, cfg)
@@ -1496,3 +1501,224 @@ def test_jamba_width_two_layers_on_the_card(card):
     nums = check.numbers(got, ref)
     print(f"Jamba width, two layers: {nums}")
     assert nums["rel_l2_max"] <= 3e-2
+
+
+# ---------------------------------------------------------------------------
+# L4: the row norm and the q/k norm-and-rotate, at the cells' shapes
+# ---------------------------------------------------------------------------
+
+# L4 against its plain version.  Both round at the same places (each float32
+# product and sum, the norm's rounding to x's type before the rotation, the
+# last one); only the order of the sum of squares differs (a butterfly over
+# lanes against PyTorch's reduction tree), a few float32 ulps of the scale,
+# which now and then moves an output across a rounding boundary: bf16 at
+# most one output ulp apart (the norm), relative L2 within NORM_BF16_REL;
+# float32 within NORM_F32_REL.  With the rotation after the norm, a flipped
+# bf16 input moves x1 c - x2 s by up to one ulp of that input: each output
+# lies within ROPE_BF16_ULPS ulps of |x1| + |x2| (one of each input and one
+# of the output).  RoPE alone rounds as the plain version does: bit for bit.
+NORM_BF16_REL = 1e-3
+NORM_F32_REL = 1e-6
+ROPE_BF16_ULPS = 2.0 ** -6
+
+
+def _bf16_ulps_apart(got, want) -> int:
+    """The largest distance in bf16 steps between two bf16 tensors."""
+    def ordered(t):
+        bits = t.contiguous().view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+
+    return int((ordered(got) - ordered(want)).abs().max().item())
+
+
+def _norm_rows(card, shape, dtype, seed, layout="contiguous"):
+    """Rows of (..., d) from a seeded draw: contiguous; for (B, H, S, hd)
+    the einsum's (B, S, H, hd) product seen as (B, H, S, hd); or (B, S, d)
+    sliced from Jamba's (B, S, 288) x_proj product at ``layout`` = the
+    slice's offset."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    if layout == "permuted":
+        b, h, s, d = shape
+        base = torch.randn(b, s, h, d, generator=gen, device=card)
+        return (3 * base).to(dtype).permute(0, 2, 1, 3)
+    if isinstance(layout, int):
+        base = (3 * torch.randn(*shape[:-1], 288, generator=gen, device=card)).to(dtype)
+        return base[..., layout:layout + shape[-1]]
+    return (3 * torch.randn(shape, generator=gen, device=card)).to(dtype)
+
+
+def _norm_weight(card, d, dtype, seed=3):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    return (1 + 0.3 * torch.randn(d, generator=gen, device=card)).to(dtype)
+
+
+def _check_norm(got, want, dtype):
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape and got.is_contiguous()
+    rel = _rel_l2(got, want)
+    if dtype == torch.bfloat16:
+        ulps = _bf16_ulps_apart(got, want)
+        print(f"L4 {tuple(got.shape)} bf16: {ulps} ulp apart at most, relative L2 {rel:.3e}")
+        assert ulps <= 1 and rel <= NORM_BF16_REL
+    else:
+        print(f"L4 {tuple(got.shape)} f32: relative L2 {rel:.3e}")
+        assert rel <= NORM_F32_REL
+
+
+@pytest.mark.parametrize("shape,layout", [
+    ((7680, 4096), "contiguous"),  # a hidden norm of the long prompt
+    ((8, 1024, 4096), "contiguous"),  # chat's eight prompts
+    ((1, 7680, 256), 0),  # Jamba's dt norm: a slice of x_proj's product
+    ((1, 7680, 16), 256),  # its B norm
+    ((1, 7680, 16), 272),  # its C norm
+    ((1, 32, 7680, 128), "permuted"),  # Qwen3's q norm, read in place
+    ((1001, 16), "contiguous"),  # a ragged last block of narrow rows
+    ((3, 16384), "contiguous"),  # 512 threads a row
+    ((2, 32768), "contiguous"),  # the widest bf16 row: 8 vectors a thread
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rms_norm_kernel_matches_plain(card, dtype, shape, layout):
+    """L4's row norm against its plain version, one launch a call."""
+    if dtype == torch.float32 and shape[-1] == 32768:
+        pytest.skip("beyond float32's widest row (4096 vectors of 4)")
+    x = _norm_rows(card, shape, dtype, seed=shape[-1], layout=layout)
+    w = _norm_weight(card, shape[-1], dtype)
+    before = L4.rms_norm_fwd.launches
+    got = L4.rms_norm_fwd(x, w)
+    assert L4.rms_norm_fwd.launches == before + 1
+    _check_norm(got, L4.rms_norm_fwd_plain(x, w), dtype)
+
+
+@pytest.mark.parametrize("rotate", [False, True], ids=["norm", "norm_rope"])
+def test_l4_takes_a_float32_weight_for_bf16_rows(card, rotate):
+    """A float32 weight on bf16 rows (a model whose parameters stay float32
+    while it computes in bf16): read as float32, as ``weight.float()``."""
+    from repro_torch.models import layers
+
+    x = _norm_rows(card, (1, 8, 1024, 128), torch.bfloat16, seed=9, layout="permuted")
+    w = _norm_weight(card, 128, torch.float32)
+    if rotate:
+        cos, sin = layers.rope_angles(torch.arange(1024, device=card).expand(1, 1024), 128, 1e6)
+        got, want = L4.qk_rope_fwd(x, w, cos, sin), L4.qk_rope_fwd_plain(x, w, cos, sin)
+        assert got.dtype == torch.bfloat16 and _rel_l2(got, want) <= NORM_BF16_REL
+    else:
+        _check_norm(L4.rms_norm_fwd(x, w), L4.rms_norm_fwd_plain(x, w), torch.bfloat16)
+
+
+@pytest.mark.parametrize("heads", [32, 8], ids=["q", "k"])
+@pytest.mark.parametrize("norm", [True, False], ids=["qwen3", "rope_only"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_qk_rope_kernel_matches_plain(card, dtype, norm, heads):
+    """L4's q/k pass at the long cell's (1, H, 7680, 128), read in place
+    from the einsum's permuted view, with Qwen3's per-head norm and
+    without it (Mixtral's RoPE alone), against its plain version."""
+    from repro_torch.models import layers
+
+    x = _norm_rows(card, (1, heads, 7680, 128), dtype, seed=heads, layout="permuted")
+    assert not x.is_contiguous()
+    w = _norm_weight(card, 128, dtype) if norm else None
+    cos, sin = layers.rope_angles(torch.arange(7680, device=card).expand(1, 7680), 128, 1e6)
+    before = L4.qk_rope_fwd.launches
+    got = L4.qk_rope_fwd(x, w, cos, sin)
+    assert L4.qk_rope_fwd.launches == before + 1
+    want = L4.qk_rope_fwd_plain(x, w, cos, sin)
+    assert got.dtype == dtype and got.shape == want.shape and got.is_contiguous()
+    rel = _rel_l2(got, want)
+    print(f"L4 q/k {tuple(x.shape)} {dtype} norm={norm}: relative L2 {rel:.3e}, "
+          f"{(got != want).float().mean().item():.2e} of the outputs differ")
+    if not norm:
+        assert torch.equal(got, want)
+    elif dtype == torch.float32:
+        assert rel <= NORM_F32_REL
+    else:
+        normed = L4.qk_rope_fwd_plain(x, w, None, None).float()
+        mag = normed[..., :64].abs() + normed[..., 64:].abs()
+        assert ((got.float() - want.float()).abs() <= ROPE_BF16_ULPS * mag.repeat(1, 1, 1, 2)).all()
+        assert rel <= NORM_BF16_REL
+        # the norm alone, through the same entry point
+        _check_norm(L4.qk_rope_fwd(x, w, None, None), normed.to(dtype), dtype)
+
+
+def test_qkv_at_qwen3_width_on_both_routes(card, monkeypatch):
+    """``blocks._qkv`` at Qwen3-8B's width (bf16, B 1, S 1024): two L4
+    launches for q and k on the kernel route, counted under the spans'
+    counters; q and k within the q/k pass's limits of the torch route's
+    ``rms_norm`` then ``apply_rope``, already contiguous for K7; v as
+    before."""
+    from repro_torch import obs
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import blocks, layers
+
+    cfg = get_arch("qwen3_8b").with_dtypes("bfloat16", "bfloat16")
+    gen = torch.Generator(device=card).manual_seed(5)
+    p = blocks.Attention(gen, cfg, None, dtype=torch.bfloat16).stage(None)
+    p = dict(p, q_norm=_norm_weight(card, 128, torch.bfloat16, 6),
+             k_norm=_norm_weight(card, 128, torch.bfloat16, 7))
+    x = torch.randn(1, 1024, cfg.d_model, generator=gen, device=card).bfloat16()
+    cos, sin = blocks._rope_tables(cfg, torch.arange(1024, device=card).expand(1, 1024))
+    before = (L4.qk_rope_fwd.launches, L4.rms_norm_fwd.launches)
+    with torch.inference_mode(), obs.tracing():
+        q, k, v = blocks._qkv(p, x, cfg, cos, sin)
+        counters = obs.counters()
+    assert (L4.qk_rope_fwd.launches, L4.rms_norm_fwd.launches) == (before[0] + 2, before[1])
+    assert counters == {"norm.kernel_calls": 2, "rope.kernel_calls": 2}
+    assert q.is_contiguous() and k.is_contiguous()
+    monkeypatch.setattr(layers, "norm_route", lambda *tensors, rotate=False: "torch")
+    with torch.inference_mode():
+        q_t, k_t, v_t = blocks._qkv(p, x, cfg, cos, sin)
+    assert L4.qk_rope_fwd.launches == before[0] + 2
+    assert torch.equal(v, v_t)
+    for got, want in ((q, q_t), (k, k_t)):
+        assert _rel_l2(got, want) <= NORM_BF16_REL
+
+
+@pytest.mark.parametrize("case", ["kernel", "under_grad", "odd_width", "misaligned_slice",
+                                  "float16"])
+def test_norm_route_on_the_card(card, case):
+    """``layers.norm_route`` takes L4 for plain CUDA rows it reads in place
+    with no gradient to take; the torch route under a gradient, at a width
+    or alignment out of its contract and for other types."""
+    from repro_torch.models import layers
+
+    x, w = torch.randn(4, 64, device=card), torch.ones(64, device=card)
+    if case == "under_grad":
+        w.requires_grad_()
+    elif case == "odd_width":
+        x, w = torch.randn(4, 63, device=card), torch.ones(63, device=card)
+    elif case == "misaligned_slice":
+        x = torch.randn(4, 72, device=card)[:, 2:66]
+    elif case == "float16":
+        x = x.half()
+    want = "kernel" if case == "kernel" else "torch"
+    assert layers.norm_route(x, w) == want
+    with torch.no_grad():  # no gradient to take: only the contract decides
+        assert layers.norm_route(x, w) == ("kernel" if case in ("kernel", "under_grad") else "torch")
+
+
+def test_norm_launches_counted_in_a_forward(card):
+    """A reduced Qwen3 forward in bf16: one L4 row norm a hidden norm
+    (2 a layer and the final one) and one q/k launch for q and one for k
+    a layer, as the counters read them; none under gradients (training
+    keeps the torch route)."""
+    import dataclasses
+
+    from repro_torch import obs
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import model as TM
+
+    cfg = dataclasses.replace(get_arch("qwen3_8b").reduced(), n_layers=3).with_dtypes(
+        "bfloat16", "bfloat16")
+    params, _ = TM.init_params(cfg, torch.Generator(device=card).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), device=card,
+                         generator=torch.Generator(device=card).manual_seed(1))
+    before = (L4.rms_norm_fwd.launches, L4.qk_rope_fwd.launches)
+    with obs.tracing():
+        TM.forward(cfg, params, toks, last_only=True)
+        counters = obs.counters()
+    n = cfg.n_layers
+    assert (L4.rms_norm_fwd.launches - before[0], L4.qk_rope_fwd.launches - before[1]) == (
+        2 * n + 1, 2 * n)
+    assert counters["norm.kernel_calls"] == 4 * n + 1 and counters["rope.kernel_calls"] == 2 * n
+    loss, _ = TM.loss_fn(cfg, params, {"tokens": toks, "labels": toks})
+    loss.backward()
+    assert (L4.rms_norm_fwd.launches - before[0], L4.qk_rope_fwd.launches - before[1]) == (
+        2 * n + 1, 2 * n)
